@@ -5,12 +5,14 @@
 
 1. Environment: torch and CUDA versions, the card's name and power limit
    (nvidia-smi), TF32 off for float32 matmuls; builds every kernel of the
-   path from src/repro_torch/kernels/csrc with nvcc (one process per source,
-   all started together).
+   paths from src/repro_torch/kernels/csrc with nvcc (one process per
+   source, all started together).
 2. Each kernel against its plain PyTorch version on the card, at the main
-   path's shapes, in float32 and bfloat16, with the tolerance stated; times
-   the kernel, the plain version and one PyTorch library call computing the
-   same function (a yardstick only: the port never calls it) with CUDA
+   paths' shapes, in float32 and bfloat16, with the tolerance stated; times
+   the kernel, the plain version and, where one PyTorch call computes the
+   same function, that call (``library_ms``; a yardstick only: the port
+   never calls it), else the composition of PyTorch calls that does
+   (``composed_ms``, e.g. the block-table gather then SDPA), with CUDA
    events, a cold L2 before every launch, median of several launches; and
    the least time the card could take for the same work (bound_ms).
 3. The main path at full width: granite-8b (36 layers, bf16) with its
@@ -22,7 +24,19 @@
    output is checked: tokens in the vocabulary, block efficiency within its
    range, and the full-width draft's logits on the card (kernel) against the
    same forward on the CPU (plain versions) in float32.
-4. Prints the kernels' JSON line, then the card's line, then as the last
+4. The batched path at full width: the same models served by
+   BatchedSpeculativeEngine (8 rows, paged arena of 64-slot blocks, ragged
+   auto-dispatch) with specinfer at (2, 2, 2) for 12 requests of 8-token
+   prompts and 16-48 new tokens, pipelined, then synchronous with the same
+   seeds, then 3 of the requests through SpeculativeEngine.  Each kernel's
+   launch count is set to 0 just before each batched run and must equal its
+   passes x layers just after; both the padded and the ragged tree pass must
+   have run; pipelined tokens must equal synchronous tokens.  Reports
+   throughput, block efficiency, pad fraction, peak blocks and memory, how
+   many streams match the single-stream engine, a profile of a few steps,
+   and a float32 check of one paged, one ragged and one commit pass of the
+   full-width draft on the card against the CPU.
+5. Prints the kernels' JSON line, then the card's line, then as the last
    line {"ok": true, "device": {...}}.  With ``--json-dir DIR`` it also
    writes the per-shape kernel table and a summary there as JSON.
 
@@ -46,6 +60,7 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 TOLERANCE = {"float32": 1e-4, "bfloat16": 2e-2}  # bf16: output rounding dominates
 REPS = 25
+KERNEL_SOURCES = ["tree_attention", "paged_tree_attention", "commit_kv"]
 
 
 def log(*args):
@@ -80,27 +95,46 @@ class ColdTimer:
         return statistics.median(times)
 
 
-def attention_bound(q, k, v, mask):
-    """Least time (ms) the card could take for masked attention on these
-    inputs, and what bounds it.  Bytes: q and out once, the mask once, and
-    the K/V rows some query of the batch row admits (all of V where a row
-    is fully masked, since its output is the mean of V).  Operations: 2*D
-    per admitted (query head, key) for QK and as many for PV."""
-    B, T, H, D = q.shape
-    Hkv = k.shape[2]
-    S = k.shape[1]
-    elt = q.element_size()
-    mb = mask.expand(B, T, S)
-    admitted = mb.sum(dim=-1)  # (B, T)
+def rows_bound(torch, q_rows, mask_rows, group, n_groups, hkv, extra_bytes):
+    """Least time (ms) the card could take for masked attention, and what
+    bounds it.  q_rows (R, H, D): every query row; mask_rows (R, S): its
+    mask; group (R,): the K/V view (batch row, or owner) each row reads.
+    Bytes: q and out once, ``extra_bytes`` (the mask as stored, tables),
+    and the K/V rows some query of a view admits (all of V where a row is
+    fully masked, since its output is the mean of V).  Operations: 2*D per
+    admitted (query head, key) for QK and as many for PV."""
+    R, H, D = q_rows.shape
+    S = mask_rows.shape[1]
+    elt = q_rows.element_size()
+    admitted = mask_rows.sum(dim=-1)  # (R,)
     full_rows = admitted == 0
-    keys_k = mb.any(dim=1).sum(dim=-1)  # (B,)
-    keys_v = (keys_k + (S - keys_k) * full_rows.any(dim=1)).double()
-    nbytes = 2 * q.numel() * elt + mask.numel() + float(((keys_k.double() + keys_v) * Hkv * D * elt).sum())
+    union = torch.zeros(n_groups, S, dtype=torch.int32, device=mask_rows.device)
+    union.index_add_(0, group, mask_rows.to(torch.int32))
+    keys_k = (union > 0).sum(dim=-1).double()
+    full = torch.zeros(n_groups, dtype=torch.int32, device=mask_rows.device)
+    full.index_add_(0, group, full_rows.to(torch.int32))
+    keys_v = keys_k + (S - keys_k) * (full > 0)
+    nbytes = 2 * q_rows.numel() * elt + extra_bytes + float(((keys_k + keys_v) * hkv * D * elt).sum())
     pv_keys = admitted + S * full_rows
     ops = float((2 * D * H * (admitted + pv_keys)).double().sum())
+    return _bound(nbytes, ops, q_rows.dtype)
+
+
+def _bound(nbytes, ops, dtype):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_FLOPS[str(q.dtype).replace("torch.", "")] * 1e3
+    t_ops = ops / PEAK_FLOPS[str(dtype).replace("torch.", "")] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def attention_bound(q, k, v, mask):
+    """``rows_bound`` of tree attention over a dense K/V view."""
+    import torch
+
+    B, T, H, D = q.shape
+    S = k.shape[1]
+    rows = mask.expand(B, T, S).reshape(B * T, S)
+    group = torch.arange(B, device=q.device).repeat_interleave(T)
+    return rows_bound(torch, q.reshape(B * T, H, D), rows, group, B, k.shape[2], mask.numel())
 
 
 # -------------------------------------------------------------- phases ------
@@ -118,7 +152,7 @@ def phase_environment(torch):
     from repro_torch.kernels import build
 
     t0 = time.perf_counter()
-    logs = build.build(["tree_attention"])
+    logs = build.build(KERNEL_SOURCES)
     log(f"built {sorted(logs) or 'nothing (libraries present)'} in {time.perf_counter() - t0:.2f} s")
     for name, text in logs.items():
         for line in text.splitlines():
@@ -175,6 +209,20 @@ def _case_inputs(torch, name, dtype, gen):
         pos, _, qpos = pos_after(44, T)
         mask = attn_mask_from_pos(pos, qpos)[:, 0]
         k, v = ring(B, Hkv, 45)
+    elif name.startswith("batched admission prefill"):  # 8 prompt tokens into a fresh 1-row ring
+        B, T = 1, 8
+        H, Hkv = (32, 8) if name.endswith("target") else (16, 4)
+        pos = torch.full((1, S), -1, dtype=torch.int32, device=dev)
+        pos[0, :T] = torch.arange(T, dtype=torch.int32, device=dev)
+        mask = attn_mask_from_pos(pos, pos[:, :T])[:, 0]
+        k, v = ring(B, Hkv, T)
+    elif name == "batched draft branch step":  # 8 streams x K = 2 forked dense rows, a mask per row
+        B, T, H, Hkv = 16, 1, 16, 4
+        n = (43 + 9 * (torch.arange(B, device=dev) // 2)).to(torch.int32)  # each row's new token
+        slot = torch.arange(S, dtype=torch.int32, device=dev)[None]
+        pos = torch.where(slot <= n[:, None], slot, -1)
+        mask = attn_mask_from_pos(pos, n[:, None])[:, 0]
+        k, v = ring(B, Hkv, int(n.max()) + 1)
     else:  # random per-row mask with a fully masked row
         B, T, H, Hkv = 2, 7, 32, 8
         mask = torch.rand(B, T, S, generator=gen, device=dev) < 0.5
@@ -186,11 +234,12 @@ def _case_inputs(torch, name, dtype, gen):
 
 
 CASES = ["target prefill", "target tree pass", "draft decode", "draft branch step",
-         "random mask, fully masked row"]
+         "random mask, fully masked row", "batched admission prefill, target",
+         "batched admission prefill, draft", "batched draft branch step"]
 
 
 def phase_kernels(torch):
-    log("== phase 2: tree_attention against its plain version on the card")
+    log("== phase 2: each kernel against its plain version on the card")
     import torch.nn.functional as F
 
     from repro_torch.kernels.ref import tree_attention_ref
@@ -220,13 +269,248 @@ def phase_kernels(torch):
             plain_ms = timer(lambda: tree_attention_ref(q, k, v, mask))
             library_ms = timer(sdpa)
             bound_ms, bound_by = attention_bound(q, k, v, mask)
-            row = {"case": case, "dtype": dname, "shape": {"B": q.shape[0], "T": q.shape[1], "H": q.shape[2],
+            row = {"kernel": "tree_attention", "case": case, "dtype": dname, "shape": {"B": q.shape[0], "T": q.shape[1], "H": q.shape[2],
                    "Hkv": k.shape[2], "S": k.shape[1], "D": q.shape[3], "Bm": mask.shape[0]},
                    "max_abs_err": err, "tolerance": TOLERANCE[dname], "ms": ms, "plain_ms": plain_ms,
                    "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by}
             rows.append(row)
             log(f"  {case:30s} {dname:8s} err {err:.3e} (tol {TOLERANCE[dname]:.0e})  kernel {ms:.4f} ms  "
                 f"plain {plain_ms:.4f} ms  sdpa {library_ms:.4f} ms  bound {bound_ms:.5f} ms ({bound_by})")
+        rows += paged_kernel_rows(torch, dtype, gen, timer)
+    return rows
+
+
+# ------------------------------------------------- the batched path's kernels ---
+
+PAGED_CASES = ["paged target tree pass", "draft ingest Dp=1", "draft ingest Dp=2", "draft trunk",
+               "unmapped blocks, fully masked row"]
+RAGGED_CASES = [3, 8]  # owners of (2, 2, 2) trees in one flat buffer
+BLOCK, NB, S_LOGICAL = 64, 16, 1024
+
+
+def _paged_pool(torch, gen, dtype, B, Hkv, lengths, T):
+    """A random arena (trash block included), tables mapping each row's
+    blocks up to length + T (distinct ids), and per-row pos tables holding
+    the committed positions."""
+    import numpy as np
+
+    nblk = B * NB + 1
+    k = torch.randn(nblk, BLOCK, Hkv, 128, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(nblk, BLOCK, Hkv, 128, generator=gen, device="cuda").to(dtype)
+    ids = (torch.randperm(nblk - 1, generator=gen, device="cuda") + 1).reshape(B, NB).cpu().numpy()
+    tbl = np.full((B, NB), -1, np.int32)
+    pos = np.full((B, S_LOGICAL), -1, np.int32)
+    for b, n in enumerate(lengths):
+        need = -(-(n + T) // BLOCK)
+        tbl[b, :need] = ids[b, :need]
+        pos[b, :n] = np.arange(n)
+    return k, v, torch.as_tensor(tbl, device="cuda"), torch.as_tensor(pos, device="cuda")
+
+
+def _paged_case_inputs(torch, name, dtype, gen):
+    """(q, k_arena, v_arena, tbl, mask) of the padded paged pass at one of the
+    batched path's shapes, masks made by the port's own cache functions."""
+    from repro_torch.models.cache import attn_mask_from_pos, cache_slots, tree_mask_from_pos
+    from repro_torch.serving.serve_step import device_ancestor_mask
+
+    B = 8
+    lengths = [40 + 9 * b for b in range(B)]
+    if name in ("paged target tree pass", "unmapped blocks, fully masked row"):
+        T, H, Hkv = 7, 32, 8
+    else:
+        T = {"draft ingest Dp=1": 1, "draft ingest Dp=2": 2, "draft trunk": 1}[name]
+        H, Hkv = 16, 4
+    k, v, tbl, pos = _paged_pool(torch, gen, dtype, B, Hkv, lengths, T)
+    length = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    slots = cache_slots(length, T, S_LOGICAL)
+    bidx = torch.arange(B, device="cuda")[:, None]
+    if T == 7:
+        parents = torch.tensor([[-1, 0, 1, 2, 2, 3, 4]] * B, dtype=torch.int32, device="cuda")
+        anc = device_ancestor_mask(parents)
+        qpos = length[:, None] + anc.sum(dim=-1).to(torch.int32) - 1
+        pos[bidx, slots.long()] = qpos
+        mask = tree_mask_from_pos(pos, qpos, anc, slots)[:, 0]
+    else:
+        lens = torch.tensor([1 + b % T for b in range(B)], device="cuda")
+        qpos = length[:, None] + torch.arange(T, dtype=torch.int32, device="cuda")
+        pos[bidx, slots.long()] = torch.where(torch.arange(T, device="cuda") < lens[:, None], qpos, -1)
+        mask = attn_mask_from_pos(pos, qpos)[:, 0]
+    if name == "unmapped blocks, fully masked row":
+        tbl[1:, 1:] = -1  # unmapped logical blocks read the trash block
+        mask = torch.rand(B, T, S_LOGICAL, generator=gen, device="cuda") < 0.05
+        mask[:, :, BLOCK:] &= (torch.arange(B, device="cuda") == 0)[:, None, None]
+        mask[2, 3] = False
+    q = torch.randn(B, T, H, 128, generator=gen, device="cuda").to(dtype)
+    return q, k, v, tbl, mask.contiguous()
+
+
+def _ragged_case_inputs(torch, owners, dtype, gen):
+    """(q, k_arena, v_arena, tbl, owner, mask) of the ragged pass: ``owners``
+    (2, 2, 2) trees of 7 nodes packed back to back into Npad (a power of two)
+    lanes, padding lanes as forward passes them to the kernel (owner -1)."""
+    import numpy as np
+
+    from repro_torch.models.cache import ragged_tree_mask
+    from repro_torch.serving.serve_step import next_pow2
+
+    B = 8
+    lengths = [40 + 9 * b for b in range(B)]
+    k, v, tbl, pos = _paged_pool(torch, gen, dtype, B, 8, lengths, 7)
+    n = 7 * owners
+    npad = next_pow2(n)
+    parent1, depth1 = np.array([-1, 0, 1, 2, 2, 3, 4]), np.array([0, 1, 2, 3, 3, 4, 4])
+    owner = np.zeros(npad, np.int32)
+    parent = np.full(npad, -1, np.int32)
+    depth = np.zeros(npad, np.int32)
+    local = np.full(npad, -1, np.int32)
+    for i in range(owners):
+        o = 7 * i
+        owner[o:o + 7] = 7 - i  # rows in the engine's order are sorted; any order is legal
+        parent[o:o + 7] = np.where(parent1 >= 0, o + parent1, -1)
+        depth[o:o + 7] = depth1
+        local[o:o + 7] = np.arange(7)
+    owner_t, parent_t, depth_t, local_t = (torch.as_tensor(a, device="cuda") for a in (owner, parent, depth, local))
+    length = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    q_pos = length[owner_t.long()] + depth_t
+    slots = torch.where(local_t >= 0, (length[owner_t.long()] + local_t.clamp_min(0)) % S_LOGICAL, S_LOGICAL)
+    real = local_t >= 0
+    pos[owner_t.long()[real], slots.long()[real]] = q_pos[real]
+    mask = ragged_tree_mask(pos, q_pos, owner_t, slots, parent_t)
+    q = torch.randn(npad, 32, 128, generator=gen, device="cuda").to(dtype)
+    return q, k, v, tbl, torch.where(real, owner_t, -1), mask.contiguous()
+
+
+def _commit_case_inputs(torch, dtype, gen):
+    """The fused commit of the 36-layer target arena (8 rows x 16 blocks of
+    64 slots, 8 KV heads of 128): 8 rows x P = 4 entries translated through
+    the tables, as make_pool_commit_step stages them.  Rows 0-4 accept the
+    chain [2, 3, 4] (entry j's source is entry j+1's destination) and pad
+    with the root's identity copy; rows 5-7 are idle, their tables unmapped,
+    so 12 entries are identity copies of one trash lane."""
+    from repro_torch.models.cache import paged_phys_slots
+
+    B, P, L = 8, 4, 36
+    k = torch.randn(L, B * NB + 1, BLOCK, 8, 128, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(L, B * NB + 1, BLOCK, 8, 128, generator=gen, device="cuda").to(dtype)
+    tbl = (torch.randperm(B * NB, generator=gen, device="cuda") + 1).reshape(B, NB).to(torch.int32)
+    tbl[5:] = -1
+    C = torch.tensor([40 + 9 * b if b < 5 else 0 for b in range(B)], device="cuda")
+    path = torch.tensor([2, 3, 4, 0], device="cuda")
+    j = torch.arange(P, device="cuda")
+    valid = (j[None, :] < 3) & (torch.arange(B, device="cuda") < 5)[:, None]
+    src = torch.where(valid, C[:, None] + path, C[:, None])
+    dst = torch.where(valid, C[:, None] + 1 + j, C[:, None])
+    srcf = paged_phys_slots(tbl, src, BLOCK).reshape(1, -1).to(torch.int32)
+    dstf = paged_phys_slots(tbl, dst, BLOCK).reshape(1, -1).to(torch.int32)
+    kf = k.view(L, 1, -1, 8, 128)
+    vf = v.view(L, 1, -1, 8, 128)
+    return kf, vf, srcf, dstf
+
+
+def _check(torch, kernel, case, dname, out, ref):
+    err = (out.float() - ref.float()).abs().max().item()
+    if not torch.isfinite(out).all() or err > TOLERANCE[dname]:
+        raise RuntimeError(f"{kernel} disagrees with its plain version: {case} {dname} "
+                           f"max abs err {err} > {TOLERANCE[dname]} (or not finite)")
+    return err
+
+
+def paged_kernel_rows(torch, dtype, gen, timer):
+    """The batched path's three kernels at its shapes, in one dtype."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.commit_kv import commit_kv
+    from repro_torch.kernels.paged_tree_attention import paged_tree_attention, ragged_paged_tree_attention
+    from repro_torch.kernels.ref import (
+        commit_kv_ref,
+        paged_gather_kv_ref,
+        paged_tree_attention_ref,
+        ragged_tree_attention_ref,
+    )
+
+    dname = str(dtype).replace("torch.", "")
+    rows = []
+
+    def record(kernel, case, shape, err, ms, plain_ms, composed_ms, composed, bound):
+        rows.append({"kernel": kernel, "case": case, "dtype": dname, "shape": shape, "max_abs_err": err,
+                     "tolerance": TOLERANCE[dname], "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                     "composed_ms": composed_ms, "composed_of": composed, "bound_ms": bound[0],
+                     "bound_by": bound[1]})
+        log(f"  {kernel} {case:34s} {dname:8s} err {err:.3e}  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+            f"{composed} {composed_ms:.4f} ms  bound {bound[0]:.5f} ms ({bound[1]})")
+
+    for case in PAGED_CASES:
+        q, k, v, tbl, mask = _paged_case_inputs(torch, case, dtype, gen)
+        out = paged_tree_attention(q, k, v, tbl, mask)
+        torch.cuda.synchronize()
+        err = _check(torch, "paged_tree_attention", case, dname, out, paged_tree_attention_ref(q, k, v, tbl, mask))
+        B, T, H, D = q.shape
+
+        def composed():
+            kd, vd = paged_gather_kv_ref(k, v, tbl)
+            return F.scaled_dot_product_attention(q.transpose(1, 2), kd.transpose(1, 2), vd.transpose(1, 2),
+                                                  attn_mask=mask[:, None], enable_gqa=True)
+
+        rmask = mask.expand(B, T, mask.shape[-1]).reshape(B * T, -1)
+        group = torch.arange(B, device="cuda").repeat_interleave(T)
+        bound = rows_bound(torch, q.reshape(B * T, H, D), rmask, group, B, k.shape[2],
+                           mask.numel() + tbl.numel() * 4)
+        record("paged_tree_attention", case,
+               {"B": B, "T": T, "H": H, "Hkv": k.shape[2], "D": D, "block": BLOCK, "max_blocks": NB},
+               err, timer(lambda: paged_tree_attention(q, k, v, tbl, mask)),
+               timer(lambda: paged_tree_attention_ref(q, k, v, tbl, mask)), timer(composed),
+               "gather+sdpa", bound)
+
+    for owners in RAGGED_CASES:
+        case = f"ragged target pass, {owners} owners"
+        q, k, v, tbl, owner, mask = _ragged_case_inputs(torch, owners, dtype, gen)
+        out = ragged_paged_tree_attention(q, k, v, tbl, owner, mask)
+        torch.cuda.synchronize()
+        err = _check(torch, "ragged_paged_tree_attention", case, dname, out,
+                     ragged_tree_attention_ref(q, k, v, tbl, owner, mask))
+        N, H, D = q.shape
+
+        def composed():  # padding lanes attend over row 0, as in the JAX package
+            kd, vd = paged_gather_kv_ref(k, v, tbl[owner.long().clamp_min(0)])
+            return F.scaled_dot_product_attention(q[:, :, None], kd.transpose(1, 2), vd.transpose(1, 2),
+                                                  attn_mask=mask[:, None, None], enable_gqa=True)
+
+        # real lanes only: a padding lane reads nothing and writes zeros
+        real = owner >= 0
+        n_pad = int((~real).sum())
+        bound = rows_bound(torch, q[real], mask[real], owner[real].long(), tbl.shape[0], k.shape[2],
+                           mask[real].numel() + tbl.numel() * 4 + owner.numel() * 4
+                           + n_pad * H * D * q.element_size())
+        record("ragged_paged_tree_attention", case,
+               {"Npad": N, "owners": owners, "padding_lanes": n_pad, "H": H, "Hkv": k.shape[2], "D": D, "block": BLOCK, "max_blocks": NB},
+               err, timer(lambda: ragged_paged_tree_attention(q, k, v, tbl, owner, mask)),
+               timer(lambda: ragged_tree_attention_ref(q, k, v, tbl, owner, mask)), timer(composed),
+               "gather+sdpa", bound)
+
+    case = "36-layer arena, B*P = 32, chains + trash padding"
+    kf, vf, src, dst = _commit_case_inputs(torch, dtype, gen)
+    want_k, want_v = commit_kv_ref(kf.clone(), vf.clone(), src, dst)
+    got_k, got_v = commit_kv(kf, vf, src, dst)
+    torch.cuda.synchronize()
+    if not (torch.equal(got_k, want_k) and torch.equal(got_v, want_v)):
+        raise RuntimeError(f"commit_kv disagrees with its plain version ({dname}): it must be exact")
+    del want_k, want_v
+    L, E = kf.shape[0], src.numel()
+    lane_bytes = kf.shape[3] * kf.shape[4] * kf.element_size()
+    # only entries with src != dst move (each names a distinct destination); all are in range
+    M = int(torch.unique(dst[src != dst]).numel())
+    bound = _bound(2 * 2 * L * M * lane_bytes + 2 * E * 4, 0.0, dtype)
+
+    def composed():
+        s, d = src[0].long(), dst[0].long()
+        kf.index_copy_(2, d, kf.index_select(2, s))
+        vf.index_copy_(2, d, vf.index_select(2, s))
+
+    record("commit_kv", case, {"L": L, "entries": E, "moves": M, "Hkv": kf.shape[3], "hd": kf.shape[4]}, 0.0,
+           timer(lambda: commit_kv(kf, vf, src, dst)), timer(lambda: commit_kv_ref(kf, vf, src, dst)),
+           timer(composed), "index_select+index_copy_", bound)
+    del kf, vf
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -390,6 +674,271 @@ def phase_reference(torch):
     return worst
 
 
+# --------------------------------------------------------- phase 4: batched ---
+
+N_REQUESTS, N_SLOTS = 12, 8
+
+
+def _launch_counters():
+    from repro_torch.kernels.commit_kv import commit_kv
+    from repro_torch.kernels.paged_tree_attention import paged_tree_attention, ragged_paged_tree_attention
+    from repro_torch.kernels.tree_attention import tree_attention
+
+    return {"tree_attention": tree_attention, "paged_tree_attention": paged_tree_attention,
+            "ragged_paged_tree_attention": ragged_paged_tree_attention, "commit_kv": commit_kv}
+
+
+def _serve_batched(torch, eng, prompts, max_new, seeds, layers):
+    """Serve the requests with every launch count set to 0 just before and
+    read just after; check each equals its passes x layers."""
+    counters = _launch_counters()
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    first, last, seen = {}, {}, {}
+    t0 = time.perf_counter()
+    rids = [eng.submit(p, max_new=m, seed=sd) for p, m, sd in zip(prompts, max_new, seeds)]
+    while eng.queue or eng.streams:
+        ts = time.perf_counter()
+        events = eng.step()
+        te = time.perf_counter()
+        for ev in events:
+            first.setdefault(ev["rid"], ts)
+            seen.setdefault(ev["rid"], []).append(len(ev["new_tokens"]))
+            if ev["done"]:
+                last[ev["rid"]] = te
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    c = eng.counters
+    n_tgt, n_drf = layers
+    steps = c["target_calls"]
+    expected = {
+        # the admission prefills (target + draft) and the two branch steps of every step
+        "tree_attention": len(prompts) * (n_tgt + n_drf) + n_drf * 2 * steps,
+        # ingest and the two trunk steps of every step, and the padded target passes
+        "paged_tree_attention": n_drf * 3 * steps + n_tgt * c["padded_calls"],
+        "ragged_paged_tree_attention": n_tgt * c["ragged_calls"],
+        "commit_kv": c["commit_calls"],
+    }
+    if c["draft_calls"] != 5 * steps or c["commit_calls"] != steps:
+        raise RuntimeError(f"draft calls {c['draft_calls']}, commits {c['commit_calls']} for {steps} steps "
+                           "of (2, 2, 2): expected 5 and 1 per step")
+    for name, want in expected.items():
+        if launches[name] == 0 or launches[name] != want:
+            raise RuntimeError(f"{name} launched {launches[name]} times, expected {want} (passes x layers)")
+    if not (c["padded_calls"] and c["ragged_calls"]):
+        raise RuntimeError(f"padded {c['padded_calls']} and ragged {c['ragged_calls']} tree passes: both must run")
+    outs = {rid: eng.finished.pop(rid) for rid in rids}
+    vocab = eng.tc.vocab
+    for rid, m in zip(rids, max_new):
+        toks = outs[rid]["tokens"]
+        if outs[rid]["reason"] != "length" or len(toks) != m or not all(0 <= t < vocab for t in toks):
+            raise RuntimeError(f"request {rid}: {outs[rid]['reason']}, {len(toks)} of {m} tokens: {toks}")
+    tokens = [outs[r]["tokens"] for r in rids]
+    per_stream = [len(t) / (last[r] - first[r]) for r, t in zip(rids, tokens)]
+    be = c["accepted"] / max(c["blocks"], 1) + 1
+    res = {"wall_s": wall, "tokens": sum(map(len, tokens)), "tokens_per_s": sum(map(len, tokens)) / wall,
+           "per_stream_tokens_per_s_median": statistics.median(per_stream),
+           "per_stream_tokens_per_s": per_stream, "block_efficiency": be,
+           "pad_fraction": c["pad_nodes_total"] / max(c["tree_lanes_total"], 1),
+           "blocks_peak": c["blocks_peak"], "steps": steps, "padded_calls": c["padded_calls"],
+           "ragged_calls": c["ragged_calls"], "pipeline_ahead": c["pipeline_ahead"],
+           "pipeline_stalls": c["pipeline_stalls"], "launches": launches,
+           "tokens_per_step": [seen[r] for r in rids]}
+    return tokens, res
+
+
+def _profile_batched(torch, eng, prompts, seeds, n_steps):
+    """Device time by kernel and the device's busy share over ``n_steps``
+    steps of a full pool (8 resident streams)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for p, sd in zip(prompts, seeds):
+        eng.submit(p, max_new=48, seed=sd)
+    eng.step()  # admission and the first step outside the window
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            eng.step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    eng.abort_pipeline()
+    by_name: dict[str, float] = {}
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[evt.name] = by_name.get(evt.name, 0.0) + evt.time_range.elapsed_us() / 1e3
+    busy_ms = sum(by_name.values())
+    mine = {k: sum(t for n, t in by_name.items() if k in n)
+            for k in ("tree_attention_kernel", "paged_attention_kernel", "commit_kv_kernel")}
+    ops = [(e.key, e.self_cpu_time_total / 1e3, e.count) for e in prof.key_averages()]
+    torch_host_ms = sum(t for _, t, _ in ops)
+    launches = sum(n for k, _, n in ops if k in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"))
+    log(f"  profile: {n_steps} steps of 8 streams, wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms "
+        f"({100 * busy_ms / wall_ms:.1f} %), kernel launches {launches}")
+    for k, t in mine.items():
+        log(f"    {k:24s} {t:9.3f} ms ({100 * t / max(busy_ms, 1e-9):.1f} % of busy)")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    for name, t in top:
+        log(f"    device {t:9.3f} ms  {name[:100]}")
+    log(f"  host: {torch_host_ms:.2f} ms inside torch ops (self CPU time, waits in copies to the host included), "
+        f"{wall_ms - torch_host_ms:.2f} ms outside them")
+    host = sorted(ops, key=lambda r: -r[1])[:8]
+    for name, t, n in host:
+        log(f"    host self {t:9.3f} ms  x{n:<6d} {name[:80]}")
+    return {"steps": n_steps, "wall_ms": wall_ms, "device_busy_ms": busy_ms, "kernel_ms": mine,
+            "launches": launches, "torch_host_ms": torch_host_ms, "top_kernels_ms": top, "top_host_self_ms": host}
+
+
+def phase_batched(torch):
+    log("== phase 4: batched path, full-width granite-8b + draft, bf16, 8 rows, paged, ragged auto")
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import make_draft_cfg
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving.batch_engine import BatchedSpeculativeEngine
+    from repro_torch.serving.engine import EngineConfig, SamplingParams, SpeculativeEngine
+
+    tcfg = get_config("granite-8b")
+    dcfg = make_draft_cfg(tcfg)
+    torch.cuda.reset_peak_memory_stats()
+    tp = init_params(tcfg, torch.Generator(device="cuda").manual_seed(0))
+    dp = init_params(dcfg, torch.Generator(device="cuda").manual_seed(1))
+    layers = (tcfg.n_layers, dcfg.n_layers)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, tcfg.vocab, size=8).tolist() for _ in range(N_REQUESTS)]
+    max_new = [16 + (32 * i) // (N_REQUESTS - 1) for i in range(N_REQUESTS)]
+    seeds = [100 + i for i in range(N_REQUESTS)]
+    sampling = SamplingParams(1.0, 1.0)
+
+    def engine(pipeline):
+        return BatchedSpeculativeEngine(tcfg, tp, dcfg, dp, EngineConfig("specinfer", 2, 2, 2, 1024), sampling,
+                                        n_slots=N_SLOTS, paged=True, block_size=64, pipeline=pipeline)
+
+    engine(True).generate_batch(prompts[:2], max_new=8, seeds=seeds[:2])  # warm-up, not measured
+    results, tokens = {}, {}
+    for mode, pipeline in (("pipelined", True), ("sync", False)):
+        tokens[mode], results[mode] = _serve_batched(torch, engine(pipeline), prompts, max_new, seeds, layers)
+        r = results[mode]
+        log(f"  {mode}: {r['tokens']} tokens in {r['wall_s']:.4f} s = {r['tokens_per_s']:.3f} tok/s aggregate, "
+            f"per-stream median {r['per_stream_tokens_per_s_median']:.3f} tok/s, block_efficiency "
+            f"{r['block_efficiency']:.4f}, pad_fraction {r['pad_fraction']:.4f}, blocks_peak {r['blocks_peak']}, "
+            f"steps {r['steps']} (padded {r['padded_calls']}, ragged {r['ragged_calls']}), "
+            f"ahead {r['pipeline_ahead']} stalls {r['pipeline_stalls']}, launches {r['launches']}")
+    if tokens["pipelined"] != tokens["sync"]:
+        bad = [i for i, (a, b) in enumerate(zip(tokens["pipelined"], tokens["sync"])) if a != b]
+        raise RuntimeError(f"pipelined tokens differ from synchronous tokens for requests {bad}")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  pipelined tokens == sync tokens for all {N_REQUESTS} requests; max_memory_allocated "
+        f"{peak / 2**30:.3f} GiB")
+    singles = []
+    for i in range(3):
+        eng = SpeculativeEngine(tcfg, tp, dcfg, dp, EngineConfig("specinfer", 2, 2, 2, 1024, seed=seeds[i]),
+                                sampling)
+        single = eng.generate(prompts[i], max_new=max_new[i])
+        batched = tokens["sync"][i]
+        diverge = _first_divergence(single, batched)
+        step = None if diverge is None else int(np.searchsorted(
+            np.cumsum(results["sync"]["tokens_per_step"][i]), diverge, side="right")) + 1
+        singles.append({"request": i, "match": diverge is None, "first_diverging_token": diverge,
+                        "first_diverging_step": step})
+        log(f"  request {i} through SpeculativeEngine: {'matches' if single == batched else 'differs from'} "
+            f"the batched engine token for token"
+            + ("" if diverge is None else f" (first diverging token {diverge}, in the stream's step {step}: "
+                                          f"{single[diverge]} vs {batched[diverge]})"))
+    results["single_stream_matches"] = sum(r["match"] for r in singles)
+    results["single_stream"] = singles
+    results["max_memory_allocated"] = peak
+    results["profile"] = _profile_batched(torch, engine(True), prompts[:N_SLOTS], seeds[:N_SLOTS], 6)
+    del tp, dp
+    torch.cuda.empty_cache()
+    return results
+
+
+def _first_divergence(a, b):
+    return next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+
+
+def phase_batched_reference(torch):
+    """The full-width draft in float32 over a paged pool: one padded ingest,
+    one padded tree pass, the fused commit and one ragged tree pass on the
+    card (kernels) against the CPU (plain versions), same weights."""
+    log("== phase 4b: batched passes of the full-width draft on the card against the CPU, float32")
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import make_draft_cfg
+    from repro_torch.models.cache import gather_streams
+    from repro_torch.models.transformer import init_cache, init_params
+    from repro_torch.serving import serve_step as ss
+
+    cfg = make_draft_cfg(get_config("granite-8b")).replace(dtype="float32")
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(3))
+
+    def to_cpu(tree):
+        return {k: to_cpu(v) if isinstance(v, dict) else v.cpu() for k, v in tree.items()}
+
+    devs = {"cuda": params, "cpu": to_cpu(params)}
+    tbl = np.full((3, 16), -1, np.int32)
+    tbl[0, :2], tbl[1, :2] = [4, 1], [2, 7]  # row 2 stays idle: its writes go to the trash block
+    caches = {}
+    for d in devs:
+        caches[d] = init_cache(cfg, 3, 1024, d, per_stream=True, page=(48, 64))
+        caches[d]["attn"]["block_tbl"] = torch.as_tensor(tbl, device=d)
+    rng = np.random.default_rng(2)
+    parents = np.asarray([[-1, 0, 1, 2, 2, 3, 4], [-1, 0, 1, 2, 2, 3, 4], [-1] * 7], np.int32)
+    ragged = {"owner": np.asarray([1] * 7 + [0] * 7 + [0, 0], np.int32),
+              "parent": np.asarray([-1, 0, 1, 2, 2, 3, 4, -1, 7, 8, 9, 9, 10, 11, -1, -1], np.int32),
+              "depth": np.asarray([0, 1, 2, 3, 3, 4, 4] * 2 + [0, 0], np.int32),
+              "local": np.asarray(list(range(7)) * 2 + [-1, -1], np.int32),
+              "counts": np.asarray([7, 7, 0], np.int32)}
+    commit = (np.asarray([[1, 2, 4, 0], [1, 3, 0, 0], [0] * 4], np.int32), np.asarray([3, 2, 0], np.int32),
+              np.asarray([8, 5, 0], np.int32), np.asarray([True, True, False]))
+    toks = {"ingest": rng.integers(0, cfg.vocab, size=(3, 8)), "tree": rng.integers(0, cfg.vocab, size=(3, 7)),
+            "ragged": rng.integers(0, cfg.vocab, size=16)}
+
+    def run(name, d, cache):
+        def t(a):
+            return torch.as_tensor(np.asarray(a), device=d)
+
+        p = devs[d]
+        if name == "ingest":
+            return ss.make_pool_decode_step(cfg)(p, cache, t(toks[name]), t(np.int32([8, 5, 0])))[:2]
+        if name == "tree":
+            return ss.make_pool_tree_step(cfg)(p, cache, t(toks[name]), t(parents), t([True, True, False]))[:2]
+        if name == "commit":
+            return None, ss.make_pool_commit_step(7)(cache, *(t(a) for a in commit))
+        return ss.make_pool_ragged_tree_step(cfg)(p, cache, t(toks[name]), *(t(ragged[k]) for k in (
+            "owner", "parent", "depth", "local", "counts")))[:2]
+
+    real_rows = {"ingest": np.s_[:2], "tree": np.s_[:2], "commit": None, "ragged": np.s_[:14]}
+    worst = 0.0
+    for name, real in real_rows.items():
+        logits = {}
+        for d in devs:
+            lg, caches[d] = run(name, d, caches[d])
+            logits[d] = None if lg is None else lg.cpu()
+        views = {d: gather_streams(caches[d], range(3))["attn"] for d in devs}
+        live = views["cpu"]["pos"] >= 0
+        if not torch.equal(views["cuda"]["pos"].cpu(), views["cpu"]["pos"]):
+            raise RuntimeError(f"{name}: pos tables differ between the card and the CPU")
+        errs = []
+        if logits["cpu"] is not None:
+            scale = max(1.0, logits["cpu"][real].abs().max().item())
+            errs.append((logits["cuda"][real] - logits["cpu"][real]).abs().max().item() / scale)
+        for kv in ("k", "v"):
+            a, b = views["cuda"][kv].cpu()[:, live], views["cpu"][kv][:, live]
+            errs.append((a - b).abs().max().item() / max(1.0, b.abs().max().item()))
+        rel = max(errs)
+        worst = max(worst, rel)
+        log(f"  {name}: max relative |card - cpu| over logits of real rows and KV of admitted lanes = {rel:.3e}")
+        if rel > 1e-3:
+            raise RuntimeError(f"full-width draft on the card disagrees with the CPU in the {name} pass: {rel}")
+    return worst
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--json-dir", type=Path, help="also write the result tables there as JSON")
@@ -407,24 +956,37 @@ def main():
     rows = phase_kernels(torch)
     main_path, launches = phase_main_path(torch)
     ref_err = phase_reference(torch)
+    batched = phase_batched(torch)
+    batched_ref_err = phase_batched_reference(torch)
 
-    # the kernels line reports the target tree pass in bf16: the hottest shape of the path
-    headline = next(r for r in rows if r["case"] == "target tree pass" and r["dtype"] == "bfloat16")
-    kernels = {"kernels": [{
-        "name": "tree_attention",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/tree_attention.cu",
-        "replaces": "src/repro/kernels/tree_attention.py:189",
-        "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "ms": headline["ms"],
-        "plain_ms": headline["plain_ms"],
-        "bound_ms": headline["bound_ms"],
-        "bound_by": headline["bound_by"],
-        "library_ms": headline["library_ms"],
-        "at": "target tree pass, bf16, B=1 T=7 H=32 Hkv=8 S=1024 D=128",
-    }]}
-    summary = {"main_path": main_path, "draft_card_vs_cpu_rel_err": ref_err, "nvidia_smi": smi,
+    # each kernel's launches over every main-path run (phase 3 and both phase 4 runs);
+    # its times at the hottest shape of its path, in bf16
+    runs = [batched["pipelined"]["launches"], batched["sync"]["launches"]]
+    total = {name: sum(r[name] for r in runs) for name in runs[0]}
+    total["tree_attention"] += launches
+    headline = {"tree_attention": "target tree pass", "paged_tree_attention": "paged target tree pass",
+                "ragged_paged_tree_attention": "ragged target pass, 8 owners",
+                "commit_kv": "36-layer arena, B*P = 32, chains + trash padding"}
+    replaces = {"tree_attention": "src/repro/kernels/tree_attention.py:189",
+                "paged_tree_attention": "src/repro/kernels/tree_attention.py:89",
+                "ragged_paged_tree_attention": "src/repro/kernels/tree_attention.py:134",
+                "commit_kv": "src/repro/kernels/commit_kv.py:52"}
+    source = {"tree_attention": "tree_attention.cu", "paged_tree_attention": "paged_tree_attention.cu",
+              "ragged_paged_tree_attention": "paged_tree_attention.cu", "commit_kv": "commit_kv.cu"}
+    entries = []
+    for name, case in headline.items():
+        row = next(r for r in rows if r["kernel"] == name and r["case"] == case and r["dtype"] == "bfloat16")
+        entries.append({
+            "name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{source[name]}",
+            "replaces": replaces[name], "launches": total[name],
+            "max_abs_err": max(r["max_abs_err"] for r in rows if r["kernel"] == name),
+            "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"], "composed_ms": row.get("composed_ms"),
+            "at": f"{case}, bf16",
+        })
+    kernels = {"kernels": entries}
+    summary = {"main_path": main_path, "draft_card_vs_cpu_rel_err": ref_err, "batched": batched,
+               "batched_draft_card_vs_cpu_rel_err": batched_ref_err, "nvidia_smi": smi,
                "seconds": time.perf_counter() - t_start}
     if args.json_dir:
         args.json_dir.mkdir(parents=True, exist_ok=True)

@@ -79,3 +79,40 @@ def load(name: str) -> ctypes.CDLL:
         build([name])
         lib = _loaded[name] = ctypes.CDLL(str(library_path(name)))
     return lib
+
+
+def function(name: str, symbol: str, argtypes: list):
+    """The C function ``symbol`` of ``csrc/<name>.cu`` with its argument
+    types declared (pointers and the stream as ``c_void_p``, so ctypes never
+    cuts them to 32 bits) and an int return code."""
+    fn = getattr(load(name), symbol)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def check_launch(name: str, code: int) -> None:
+    """Raise with the CUDA error string when a launch returned ``code`` != 0
+    (``csrc/<name>.cu`` exports ``<name>_error_string``)."""
+    if code == 0:
+        return
+    fn = getattr(load(name), f"{name}_error_string")
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_char_p
+    raise RuntimeError(f"{name} launch failed: {fn(code).decode()} ({code})")
+
+
+def check_cuda_tensors(kernel: str, tensors: dict) -> None:
+    """Every tensor on one CUDA device and contiguous, or raise: a kernel
+    takes nothing else (``kernels.ops`` dispatches CPU tensors to the plain
+    versions)."""
+    first = next(iter(tensors.values()))
+    for name, t in tensors.items():
+        if t.device.type != "cuda":
+            raise ValueError(f"{kernel}: {name} is on {t.device}, the kernel takes CUDA tensors "
+                             "(kernels.ops dispatches by device)")
+        if t.device != first.device:
+            raise ValueError(f"{kernel}: {name} is on {t.device}, the others on {first.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{kernel}: {name} must be contiguous")

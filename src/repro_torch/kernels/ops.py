@@ -4,15 +4,24 @@ The counterpart of src/repro/kernels/ops.py.  A CPU tensor takes the plain
 version (kernels/ref.py); a CUDA tensor launches the hand-written kernel,
 which raises on anything it does not take.  There is no other fallback.
 
-Unlike the TPU wrappers, these pad nothing (T to 8, S to a block multiple
-are TPU tiling rules) and replicate nothing (the kernel reads KV head
-h // (H / Hkv) and broadcasts a (1, T, S) mask by indexing).
+Unlike the TPU wrappers, these pad nothing (T to 8, S to a block multiple,
+N to 8-row owner tiles are TPU tiling rules), replicate nothing (the
+kernels read KV head h // (H / Hkv) and broadcast a (1, T, S) mask by
+indexing) and transpose no arena (the paged kernels read the pool's native
+(NBLK, block, Hkv, D) layout through the block table).
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.ref import tree_attention_ref
+from repro_torch.kernels.commit_kv import commit_kv
+from repro_torch.kernels.paged_tree_attention import paged_tree_attention, ragged_paged_tree_attention
+from repro_torch.kernels.ref import (
+    commit_kv_ref,
+    paged_tree_attention_ref,
+    ragged_tree_attention_ref,
+    tree_attention_ref,
+)
 from repro_torch.kernels.tree_attention import tree_attention
 
 
@@ -23,3 +32,46 @@ def gqa_tree_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return tree_attention_ref(q, k, v, mask)
     return tree_attention(q, k, v, mask)
+
+
+def gqa_paged_tree_attention(q: torch.Tensor, k_arena: torch.Tensor, v_arena: torch.Tensor,
+                             tbl: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Tree attention over one layer of a paged pool.
+
+    q (B, T, H, D); k_arena, v_arena (NBLK, block, Hkv, D); tbl
+    (B, max_blocks) int32 (-1 = unmapped, read as the trash block); mask
+    (B, T, S) or (1, T, S) bool over logical slots, S = max_blocks * block.
+    Returns (B, T, H, D)."""
+    if q.device.type == "cpu":
+        return paged_tree_attention_ref(q, k_arena, v_arena, tbl, mask)
+    return paged_tree_attention(q, k_arena, v_arena, tbl, mask)
+
+
+def gqa_ragged_tree_attention(q: torch.Tensor, k_arena: torch.Tensor, v_arena: torch.Tensor,
+                              tbl: torch.Tensor, owner: torch.Tensor,
+                              mask: torch.Tensor) -> torch.Tensor:
+    """Ragged tree attention over one layer of a paged pool.
+
+    q (N, H, D), the flat node-major buffer of every active stream's tree;
+    k_arena, v_arena (NBLK, block, Hkv, D); tbl (B, max_blocks) int32;
+    owner (N,) int32 pool row per node (the owner is per node: no
+    alignment of segments), -1 for a padding lane, whose output is zero;
+    mask (N, S) bool over the owner row's logical slots.  Returns
+    (N, H, D)."""
+    if q.device.type == "cpu":
+        return ragged_tree_attention_ref(q, k_arena, v_arena, tbl, owner, mask)
+    return ragged_paged_tree_attention(q, k_arena, v_arena, tbl, owner, mask)
+
+
+def pool_commit_kv(k: torch.Tensor, v: torch.Tensor, src: torch.Tensor, dst: torch.Tensor):
+    """Ring-compaction commit over a per-stream KV pool, IN PLACE.
+
+    k, v (L, B, Smax, Hkv, hd); src, dst (B, P) int32 slots (padding
+    entries carry src == dst and move nothing, nor does an entry with an
+    index outside [0, Smax)).  ``k[l, b, dst[b, j]] <- k[l, b, src[b, j]]``
+    with every source read before any destination is written (the
+    hazard-free contract of serving/serve_step.make_pool_commit_step).
+    Returns (k, v)."""
+    if k.device.type == "cpu":
+        return commit_kv_ref(k, v, src, dst)
+    return commit_kv(k, v, src, dst)

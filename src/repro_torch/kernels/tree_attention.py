@@ -20,35 +20,13 @@ from repro_torch.kernels import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)  # the instances compiled in csrc/tree_attention.cu
-
-
-def _function():
-    fn = build.load("tree_attention").tree_attention_launch
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
-
-
-def _error_string(code: int) -> str:
-    fn = build.load("tree_attention").tree_attention_error_string
-    fn.argtypes = [ctypes.c_int]
-    fn.restype = ctypes.c_char_p
-    return fn(code).decode()
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 
 
 def tree_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    mask: torch.Tensor) -> torch.Tensor:
     """Masked attention on the card.  Returns (B, T, H, D) in q's dtype."""
-    tensors = {"q": q, "k": k, "v": v, "mask": mask}
-    for name, t in tensors.items():
-        if t.device.type != "cuda":
-            raise ValueError(f"tree_attention: {name} is on {t.device}, the kernel takes CUDA "
-                             "tensors (kernels.ops.gqa_tree_attention dispatches by device)")
-        if t.device != q.device:
-            raise ValueError(f"tree_attention: {name} is on {t.device}, q on {q.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"tree_attention: {name} must be contiguous")
+    build.check_cuda_tensors("tree_attention", {"q": q, "k": k, "v": v, "mask": mask})
     if q.dtype not in _DTYPES:
         raise ValueError(f"tree_attention: dtype {q.dtype} not supported (bfloat16, float32)")
     if k.dtype != q.dtype or v.dtype != q.dtype:
@@ -75,10 +53,10 @@ def tree_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = _function()(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(),
-                           B, T, H, Hkv, S, D, mask.shape[0], _DTYPES[q.dtype], stream)
-    if code != 0:
-        raise RuntimeError(f"tree_attention launch failed: {_error_string(code)} ({code})")
+        fn = build.function("tree_attention", "tree_attention_launch", _ARGTYPES)
+        code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(),
+                  B, T, H, Hkv, S, D, mask.shape[0], _DTYPES[q.dtype], stream)
+    build.check_launch("tree_attention", code)
     tree_attention.launches += 1
     return out
 

@@ -1,12 +1,17 @@
-"""Speculative-decoding serving launcher (single stream).
+"""Speculative-decoding serving launcher.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \
         --verifier specinfer --K 2 --L1 2 --L2 2 --requests 2 --max-new 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \
+        --streams 8 --requests 12 --max-new 32
 
-The counterpart of src/repro/launch/serve.py without ``--streams``: builds
-a target and a proportionally smaller draft of the same family with random
-weights drawn from ``--seed``, serves synthetic requests through the
-speculative engine and reports block efficiency and throughput.  It runs on
+The counterpart of src/repro/launch/serve.py: builds a target and a
+proportionally smaller draft of the same family with random weights drawn
+from ``--seed``, serves synthetic requests through the single-stream
+speculative engine, or with ``--streams N`` through the continuous-batching
+engine over an N-row pool (paged, ragged auto-dispatch and pipelined
+stepping by default, as in the JAX launcher), and reports block efficiency
+and throughput.  It runs on
 ``--device cuda`` (the default) and raises when no CUDA device is present;
 ``--device cpu`` runs every kernel's plain version instead.
 """
@@ -21,6 +26,7 @@ import torch
 from repro_torch.configs import get_config, get_smoke
 from repro_torch.core.verify import verifier_names
 from repro_torch.models.transformer import init_params
+from repro_torch.serving.batch_engine import BatchedSpeculativeEngine
 from repro_torch.serving.engine import EngineConfig, SamplingParams, SpeculativeEngine
 
 
@@ -60,14 +66,33 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda",
                     help="device the models run on (cuda, or cpu for the plain versions)")
     ap.add_argument("--streams", type=int, default=0,
-                    help="continuous batching: not ported yet (ROADMAP queue 1 item 6)")
+                    help="continuous batching: serve through an N-slot cache pool "
+                         "(0 = sequential single-stream engine)")
+    ap.add_argument("--data-shards", type=int, default=1,
+                    help="shard the pool's stream axis: not ported (ROADMAP queue 1 item 8)")
+    ap.add_argument("--block-size", type=int, default=64,
+                    help="paged KV pool block size in tokens (rounded down to "
+                         "the nearest power of two dividing max_cache)")
+    ap.add_argument("--pool-blocks", type=int, default=0,
+                    help="total arena blocks shared by all streams (0 = "
+                         "ring-equivalent capacity, streams * max_cache/block)")
+    ap.add_argument("--ring", action="store_true",
+                    help="disable the paged KV pool and reserve a full "
+                         "max_cache ring per stream")
+    ap.add_argument("--pipeline", default=True, action=argparse.BooleanOptionalAction,
+                    help="pipelined stepping (token-identical; --no-pipeline "
+                         "restores strictly sequential steps)")
+    ap.add_argument("--ragged", default=True, action=argparse.BooleanOptionalAction,
+                    help="ragged node-major tree batching whenever it ships fewer "
+                         "lanes than the padded block (token-identical; --no-ragged "
+                         "pins the padded layout)")
     return ap
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.streams:
-        raise NotImplementedError("--streams (continuous batching) is not ported: ROADMAP queue 1 item 6")
+    if args.data_shards > 1:
+        raise NotImplementedError("--data-shards (sharded streams) is not ported: ROADMAP queue 1 item 8")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda but torch.cuda.is_available() is false; "
@@ -80,8 +105,12 @@ def main(argv=None):
 
     ecfg = EngineConfig(verifier=args.verifier, K=args.K, L1=args.L1, L2=args.L2,
                         max_cache=1024, seed=args.seed)
-    eng = SpeculativeEngine(cfg, tp, dcfg, dp, ecfg, SamplingParams(args.temperature, args.top_p))
+    sampling = SamplingParams(args.temperature, args.top_p)
     rng = np.random.default_rng(args.seed)
+    if args.streams:
+        serve_batched(args, cfg, tp, dcfg, dp, ecfg, sampling, rng, device)
+        return
+    eng = SpeculativeEngine(cfg, tp, dcfg, dp, ecfg, sampling)
     t0 = time.perf_counter()
     for r in range(args.requests):
         prompt = rng.integers(0, cfg.vocab, size=8).tolist()
@@ -95,6 +124,37 @@ def main(argv=None):
         f"block_efficiency={be:.3f} target_calls={c['target_calls']} "
         f"draft_tokens={c['draft_tokens']} wall={dt:.1f}s "
         f"tokens/s({device.type})={args.requests * args.max_new / dt:.2f}"
+    )
+
+
+def serve_batched(args, cfg, tp, dcfg, dp, ecfg, sampling, rng, device):
+    eng = BatchedSpeculativeEngine(cfg, tp, dcfg, dp, ecfg, sampling, n_slots=args.streams,
+                                   paged=not args.ring, block_size=args.block_size,
+                                   pool_blocks=args.pool_blocks or None, pipeline=args.pipeline,
+                                   ragged=args.ragged)
+    t0 = time.perf_counter()
+    rids = [eng.submit(rng.integers(0, cfg.vocab, size=8).tolist(), max_new=args.max_new, seed=args.seed + r)
+            for r in range(args.requests)]
+    outs = eng.run()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    dt = time.perf_counter() - t0
+    for r, rid in enumerate(rids):
+        out = outs[rid]["tokens"]
+        print(f"req{r}: {out[:16]}{'...' if len(out) > 16 else ''}")
+    c = eng.counters
+    be = c["accepted"] / max(c["blocks"], 1) + 1
+    pool = "ring" if not eng.paged else (
+        f"paged(block={eng.block_size}, arena={eng.pool_blocks} blocks, "
+        f"peak={c['blocks_peak']} used, reclaimed={c['blocks_reclaimed']})")
+    stepping = (f"pipelined(ahead={c['pipeline_ahead']}, stalls={c['pipeline_stalls']}"
+                f"/{c['pipeline_iterations']} iters)" if args.pipeline else "sync")
+    print(
+        f"\n[batched x{args.streams}] verifier={args.verifier} ({args.K},{args.L1},{args.L2}) "
+        f"block_efficiency={be:.3f} target_calls={c['target_calls']} "
+        f"(ragged {c['ragged_calls']}, padded {c['padded_calls']}) draft_tokens={c['draft_tokens']} "
+        f"evicted={c['evicted']} pool={pool} stepping={stepping} wall={dt:.1f}s "
+        f"tokens/s({device.type})={sum(len(o['tokens']) for o in outs.values()) / dt:.2f}"
     )
 
 

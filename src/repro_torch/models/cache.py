@@ -1,50 +1,148 @@
-"""KV cache structures: the lockstep ring of src/repro/models/cache.py.
+"""KV cache structures and pools: the attention family of src/repro/models/cache.py.
 
 Attention caches are ring buffers of size ``Smax``: slot = position % Smax,
 with absolute positions stored so masks can express causality uniformly.
-This module holds the lockstep layout only (``len`` and ``pos`` shared
-across the batch, as the single-stream engine uses them):
 
-    attn:  k, v: (L, B, Smax, Hkv, hd);  pos: (Smax,) int32;  len: () int32
+Layouts (leading layer axis L):
 
-The per-stream and paged layouts and the stream algebra come with the
-batched engine (ROADMAP queue 1 item 5).  The ring-compaction commit
-contract is documented in src/repro/models/cache.py and implemented by
+  * lockstep (``per_stream=False``): ``len`` and ``pos`` shared across the
+    batch (the single-stream engine)::
+
+        attn:  k, v: (L, B, Smax, Hkv, hd);  pos: (Smax,) int32;  len: () int32
+
+  * per-stream (``per_stream=True``): every batch row holds an independent
+    stream at its own position, the continuous-batching substrate::
+
+        attn:  k, v: (L, B, Smax, Hkv, hd);  pos: (B, Smax);  len: (B,)
+
+  * paged (``init_paged_attn_cache``): KV lives in an arena of fixed-size
+    blocks shared by every stream through per-row block tables::
+
+        attn:  k, v: (L, NBLK, block, Hkv, hd);  block_tbl: (B, max_blocks)
+               int32, -1 unmapped;  pos: (B, Smax);  len: (B,)
+
+    Logical slot s of row b lives at arena lane (block_tbl[b, s // block],
+    s % block).  Physical block 0 is the TRASH block: unmapped entries
+    clamp to it, so writes through an unmapped (or idle-row) table land in
+    lanes no mask admits (pos stays -1 for unmapped logical slots).
+
+The ring-compaction commit contract is documented in
+src/repro/models/cache.py and implemented by
 serving/serve_step.make_pool_commit_step.
 
-Unlike the JAX package, ``append_layer_kv`` writes the new K/V into the
-cache in place (``index_copy_``): a forward pass mutates the k/v tensors of
-the cache it is given, while ``pos`` and ``len`` come back as new tensors.
-A caller that still needs the cache as it was before a pass gives the pass
-a copy (``clone_cache``).
+Where this module writes in place (the JAX package returns new arrays):
+
+  * ``append_layer_kv`` and ``paged_append_layer_kv`` write the new K/V
+    into the cache's k/v (or arena) tensors, so a forward pass mutates the
+    k/v of the cache it is given, while ``pos``, ``len`` and ``block_tbl``
+    come back as new tensors;
+  * ``scatter_streams`` writes the rows' k/v into the pool's k/v tensors;
+  * ``merge_streams`` of two caches that share their k/v tensors (a pass
+    and the cache it wrote into) keeps those tensors: a frozen row's write
+    stays in its lane.  Every such lane lies at or past the row's ``len``,
+    where ``pos`` is -1 until the row itself writes it again (the frontier
+    invariant: commits invalidate the whole speculation block, ingest
+    passes mark padding lanes -1), so no mask admits it.
+A caller that still needs a cache as it was before a pass gives the pass a
+copy (``clone_cache``).
+
+Every write that JAX drops with an out-of-range index (``mode="drop"``) is
+routed into the trash block or an extra discarded column here instead:
+selecting the valid entries with a boolean filter would make a host sync.
 """
 from __future__ import annotations
 
+import heapq
+
+import numpy as np
 import torch
 
-
 def init_attn_cache(cfg, n_layers: int, batch: int, smax: int, dtype: torch.dtype,
-                    device) -> dict:
+                    device, per_stream: bool = False) -> dict:
     hd = cfg.hd
     return {
         "k": torch.zeros((n_layers, batch, smax, cfg.n_kv_heads, hd), dtype=dtype, device=device),
         "v": torch.zeros((n_layers, batch, smax, cfg.n_kv_heads, hd), dtype=dtype, device=device),
-        "pos": torch.full((smax,), -1, dtype=torch.int32, device=device),
-        "len": torch.zeros((), dtype=torch.int32, device=device),
+        "pos": torch.full((batch, smax) if per_stream else (smax,), -1, dtype=torch.int32, device=device),
+        "len": torch.zeros((batch,) if per_stream else (), dtype=torch.int32, device=device),
     }
 
 
+def init_paged_attn_cache(cfg, n_layers: int, batch: int, n_blocks: int, block: int,
+                          smax: int, dtype: torch.dtype, device) -> dict:
+    """Paged attention cache: ``n_blocks`` usable blocks plus the trash
+    block 0, and per-row tables of ``smax // block`` columns."""
+    if smax % block:
+        raise ValueError(f"smax {smax} is not a multiple of the block size {block}")
+    hd = cfg.hd
+    shape = (n_layers, n_blocks + 1, block, cfg.n_kv_heads, hd)
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+        "block_tbl": torch.full((batch, smax // block), -1, dtype=torch.int32, device=device),
+        "pos": torch.full((batch, smax), -1, dtype=torch.int32, device=device),
+        "len": torch.zeros((batch,), dtype=torch.int32, device=device),
+    }
+
+
+def is_paged(cache: dict) -> bool:
+    """True when the cache's attention component is block-table indirect."""
+    return "attn" in cache and "block_tbl" in cache["attn"]
+
+
+def paged_phys_slots(tbl: torch.Tensor, slots: torch.Tensor, block: int) -> torch.Tensor:
+    """Flat arena lanes of logical slots.  tbl (B, max_blocks); slots
+    (B, T) in [0, max_blocks * block).  Unmapped entries clamp to the trash
+    block, so callers may write through them unconditionally."""
+    blk = torch.gather(tbl, 1, (slots // block).long())
+    return blk.clamp_min(0) * block + slots % block
+
+
+def paged_append_layer_kv(k_arena, v_arena, k_new, v_new, slots, tbl):
+    """Per-layer paged KV write, in place.  k_arena (NBLK, block, Hkv, hd);
+    k_new (B, T, Hkv, hd); slots (B, T) logical; tbl (B, max_blocks)."""
+    nb, block = k_arena.shape[0], k_arena.shape[1]
+    phys = paged_phys_slots(tbl, slots, block).reshape(-1).long()
+    kf = k_arena.view((nb * block,) + k_arena.shape[2:])
+    vf = v_arena.view((nb * block,) + v_arena.shape[2:])
+    kf.index_copy_(0, phys, k_new.reshape((-1,) + k_new.shape[2:]).to(kf.dtype))
+    vf.index_copy_(0, phys, v_new.reshape((-1,) + v_new.shape[2:]).to(vf.dtype))
+    return k_arena, v_arena
+
+
+def paged_layer_view(k_arena, v_arena, tbl):
+    """The logical (B, Smax, Hkv, hd) view of one layer's arena
+    (NBLK, block, Hkv, hd), or (L, B, Smax, Hkv, hd) of a layer-stacked
+    arena, as new tensors.  Unmapped blocks read the trash block; their pos
+    is -1."""
+    phys = tbl.long().clamp_min(0)
+    B, nb = phys.shape
+    if k_arena.dim() == 5:
+        L, block = k_arena.shape[0], k_arena.shape[2]
+        return (k_arena[:, phys].reshape((L, B, nb * block) + k_arena.shape[3:]),
+                v_arena[:, phys].reshape((L, B, nb * block) + v_arena.shape[3:]))
+    block = k_arena.shape[1]
+    return (k_arena[phys].reshape((B, nb * block) + k_arena.shape[2:]),
+            v_arena[phys].reshape((B, nb * block) + v_arena.shape[2:]))
+
+
 def cache_slots(length: torch.Tensor, T: int, smax: int) -> torch.Tensor:
-    """(T,) ring slots of T tokens appended after a scalar length."""
-    return (length + torch.arange(T, dtype=torch.int32, device=length.device)) % smax
+    """(T,) ring slots after a scalar length; (B, T) after (B,) lengths."""
+    off = torch.arange(T, dtype=torch.int32, device=length.device)
+    if length.dim() == 1:
+        return (length[:, None] + off[None, :]) % smax
+    return (length + off) % smax
 
 
 def append_layer_kv(k_cache: torch.Tensor, v_cache: torch.Tensor, k_new: torch.Tensor,
                     v_new: torch.Tensor, slots: torch.Tensor):
-    """k_cache: (B, Smax, Hkv, hd); k_new: (B, T, Hkv, hd); slots: (T,).
-
-    Writes in place (the JAX package returns new arrays) and returns the
-    same two tensors."""
+    """k_cache (B, Smax, Hkv, hd); k_new (B, T, Hkv, hd); slots (T,) shared
+    or (B, T) per stream.  Writes in place and returns the two tensors."""
+    if slots.dim() == 2:
+        b = torch.arange(k_cache.shape[0], device=k_cache.device)[:, None]
+        k_cache[b, slots.long()] = k_new.to(k_cache.dtype)
+        v_cache[b, slots.long()] = v_new.to(v_cache.dtype)
+        return k_cache, v_cache
     idx = slots.long()
     k_cache.index_copy_(1, idx, k_new.to(k_cache.dtype))
     v_cache.index_copy_(1, idx, v_new.to(v_cache.dtype))
@@ -53,14 +151,14 @@ def append_layer_kv(k_cache: torch.Tensor, v_cache: torch.Tensor, k_new: torch.T
 
 def attn_mask_from_pos(pos: torch.Tensor, q_positions: torch.Tensor, window: int = 0) -> torch.Tensor:
     """Mask: slot valid iff 0 <= pos[s] <= q_pos[t] (and within the window
-    when sliding).  pos: (Smax,); q_positions: (T,) absolute positions of
-    the queries.  Returns (1, 1, T, Smax)."""
-    s = pos[None, :]
-    t = q_positions[:, None]
+    when sliding).  pos (Smax,) or (B, Smax); q_positions (T,) or (B, T).
+    Returns (1, 1, T, Smax) or (B, 1, T, Smax)."""
+    s = pos[..., None, :]
+    t = q_positions[..., :, None]
     m = (s >= 0) & (s <= t)
     if window:
         m = m & (s > t - window)
-    return m[None, None]
+    return m[:, None] if m.dim() == 3 else m[None, None]
 
 
 def tree_mask_from_pos(pos: torch.Tensor, q_positions: torch.Tensor, anc: torch.Tensor,
@@ -69,10 +167,22 @@ def tree_mask_from_pos(pos: torch.Tensor, q_positions: torch.Tensor, anc: torch.
 
     The T tree tokens were appended into ``self_slots``; a tree token may
     attend to (a) any older cache slot per the causal/window rule against
-    the branch-context boundary, and (b) its tree ancestors (anc, (T, T) or
-    (Ba, T, T) sharing one slot table, including self).  Returns
-    (1, 1, T, Smax) or (Ba, 1, T, Smax).
-    """
+    the branch-context boundary, and (b) its tree ancestors (anc (T, T), or
+    (B, T, T): per stream when pos is (B, Smax), else sharing one slot
+    table; self included).  Returns (1 or B, 1, T, Smax)."""
+    if pos.dim() == 2:  # per-stream tables: pos (B, Smax), self_slots (B, T)
+        B, T = self_slots.shape
+        base = attn_mask_from_pos(pos, q_positions, window)[:, 0]  # (B, T, Smax)
+        bidx = torch.arange(B, device=pos.device)[:, None]
+        sl = self_slots.long()
+        is_self = torch.zeros(pos.shape, dtype=torch.bool, device=pos.device)
+        is_self[bidx, sl] = True
+        base = base & ~is_self[:, None, :]
+        anc_b = anc if anc.dim() == 3 else anc[None].expand(B, T, T)
+        tree_part = torch.zeros(base.shape, dtype=torch.bool, device=pos.device)
+        tidx = torch.arange(T, device=pos.device)
+        tree_part[bidx[:, :, None], tidx[None, :, None], sl[:, None, :]] = anc_b.bool()
+        return (base | tree_part)[:, None]
     base = attn_mask_from_pos(pos, q_positions, window)[0, 0]  # (T, Smax)
     idx = self_slots.long()
     # cut out the tree's own slots from the causal rule, then re-add ancestors
@@ -88,19 +198,390 @@ def tree_mask_from_pos(pos: torch.Tensor, q_positions: torch.Tensor, anc: torch.
     return (base | tree_part)[None, None]
 
 
+def ancestor_closure(direct: torch.Tensor) -> torch.Tensor:
+    """Ancestor-or-self masks from parent edges.  direct (..., n, n) bool
+    with direct[i, j] iff j is i or i's parent.  Repeated squaring of the
+    reachability matrix (exact: the products count paths), ceil(log2 n)
+    products instead of the JAX package's n chase steps."""
+    n = direct.shape[-1]
+    a = direct.float()
+    for _ in range(max(n - 1, 1).bit_length()):
+        a = ((a @ a) > 0).float()
+    return a > 0
+
+
+def ragged_tree_mask(pos: torch.Tensor, q_pos: torch.Tensor, owner: torch.Tensor,
+                     slots: torch.Tensor, parent: torch.Tensor, window: int = 0) -> torch.Tensor:
+    """Tree-pass mask of the RAGGED node-major layout, (N, Smax).
+
+    ``owner[i]`` is node i's pool row, ``slots[i]`` its ring slot in that
+    row (``Smax`` for padding lanes, a sentinel that writes nothing),
+    ``parent[i]`` its FLAT parent index (-1 for roots and padding) and
+    ``q_pos[i]`` its absolute position; ``pos`` is the (B, Smax) table
+    after writing the tree tokens.  Row i admits, over its owner row,
+    committed slots by the causal/window rule plus the slots of its
+    flat-tree ancestors (self included)."""
+    N = owner.shape[0]
+    smax = pos.shape[-1]
+    dev = pos.device
+    ow, sl = owner.long(), slots.long()
+    p = pos[ow]  # (N, Smax)
+    base = (p >= 0) & (p <= q_pos[:, None])
+    if window:
+        base = base & (p > q_pos[:, None] - window)
+    # the sentinel column smax takes the padding lanes' writes and is cut off
+    is_self = torch.zeros((pos.shape[0], smax + 1), dtype=torch.bool, device=dev)
+    is_self[ow, sl] = True
+    base = base & ~is_self[ow, :smax]
+    idx = torch.arange(N, device=dev)
+    direct = (idx[None, :] == idx[:, None]) | (idx[None, :] == parent.long()[:, None])
+    anc = ancestor_closure(direct)
+    # OR-scatter ancestor admits into slot columns (a count, then > 0): two
+    # streams may reuse one slot value, and a foreign node's False must not
+    # wipe the owner's True
+    hits = torch.zeros((N, smax + 1), dtype=torch.int32, device=dev)
+    hits.scatter_add_(1, sl[None, :].expand(N, N), anc.to(torch.int32))
+    return base | (hits[:, :smax] > 0)
+
+
+# ---------------------------------------------------------- stream algebra ---
+#
+# The port's caches hold the attention family only: {"attn": {...}}.  k/v
+# carry the stream axis at 1, per-stream pos/len at 0; lockstep pos/len have
+# none.
+
+
+def _stream_axes(attn: dict) -> dict:
+    return {"k": 1, "v": 1, "pos": 0 if attn["pos"].dim() == 2 else None,
+            "len": 0 if attn["len"].dim() == 1 else None}
+
+
+def _rows_tensor(rows, device) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(rows, np.int64), device=device)
+
+
+def _paged_gather_attn(attn: dict, rows: torch.Tensor) -> dict:
+    """Selected paged rows as a DENSE per-stream attn cache (new tensors)."""
+    tblr = attn["block_tbl"][rows]
+    kd, vd = paged_layer_view(attn["k"], attn["v"], tblr)
+    return {"k": kd, "v": vd, "pos": attn["pos"][rows], "len": attn["len"][rows]}
+
+
+def _paged_scatter_attn(attn: dict, rows_attn: dict, slots: torch.Tensor) -> dict:
+    """Write dense per-stream rows back through the block tables, k/v in
+    place.  Content of logical blocks a row has not mapped lands in the
+    trash block."""
+    phys = attn["block_tbl"][slots].long().clamp_min(0)  # (R, nb)
+    R, nb = phys.shape
+    k, v = attn["k"], attn["v"]
+    block = k.shape[2]
+    k[:, phys] = rows_attn["k"].reshape((k.shape[0], R, nb, block) + k.shape[3:]).to(k.dtype)
+    v[:, phys] = rows_attn["v"].reshape((v.shape[0], R, nb, block) + v.shape[3:]).to(v.dtype)
+    pos, length = attn["pos"].clone(), attn["len"].clone()
+    pos[slots] = rows_attn["pos"].to(pos.dtype)
+    length[slots] = rows_attn["len"].to(length.dtype)
+    return {"k": k, "v": v, "pos": pos, "len": length, "block_tbl": attn["block_tbl"]}
+
+
+def gather_streams(cache: dict, rows) -> dict:
+    """Select stream rows (a smaller cache over ``rows``, in order; new
+    tensors).  Paged caches come back DENSE: per-stream rings over the
+    rows' logical views, which ``scatter_streams`` writes back."""
+    attn = cache["attn"]
+    rows = _rows_tensor(rows, attn["k"].device)
+    if is_paged(cache):
+        return {"attn": _paged_gather_attn(attn, rows)}
+    axes = _stream_axes(attn)
+    return {"attn": {n: t if axes[n] is None else t.index_select(axes[n], rows)
+                     for n, t in attn.items()}}
+
+
 def fork_streams(cache: dict, K: int) -> dict:
-    """Replicate the cache's stream rows K times along the batch axis (row b
-    maps to rows b*K .. b*K+K-1).  The lockstep pos/len stay shared.  The
-    forked k/v are new tensors, so passes over the fork leave the parent's
-    k/v untouched."""
-    a = cache["attn"]
-    out = dict(cache)
-    out["attn"] = {**a, "k": a["k"].repeat_interleave(K, dim=1),
-                   "v": a["v"].repeat_interleave(K, dim=1)}
-    return out
+    """Replicate every stream row K times along its stream axis (row b maps
+    to rows b*K .. b*K+K-1), as new tensors, so passes over the fork leave
+    the parent untouched.  Lockstep pos/len are shared, not replicated.  A
+    paged cache is first gathered to its dense per-stream view: forked
+    branches write independent speculative KV, which a shared arena cannot
+    hold."""
+    if is_paged(cache):
+        cache = gather_streams(cache, range(cache["attn"]["len"].shape[0]))
+    attn = cache["attn"]
+    axes = _stream_axes(attn)
+    return {"attn": {n: t if axes[n] is None else t.repeat_interleave(K, dim=axes[n])
+                     for n, t in attn.items()}}
+
+
+def scatter_streams(pool: dict, rows_cache: dict, slots) -> dict:
+    """Write ``rows_cache`` stream rows into ``pool`` at ``slots`` (pool row
+    indices, one per rows_cache row): k/v in place, pos/len as new tensors.
+    A paged pool takes dense per-stream rows (the ``gather_streams`` layout)
+    and routes them through its block tables."""
+    attn, rows_attn = pool["attn"], rows_cache["attn"]
+    slots = _rows_tensor(slots, attn["k"].device)
+    if is_paged(pool):
+        return {"attn": _paged_scatter_attn(attn, rows_attn, slots)}
+    axes = _stream_axes(attn)
+    out = {}
+    for n, t in attn.items():
+        ax = axes[n]
+        if ax is None:
+            out[n] = t
+            continue
+        dst = t if n in ("k", "v") else t.clone()
+        dst.index_copy_(ax, slots, rows_attn[n].to(dst.dtype))
+        out[n] = dst
+    return {"attn": out}
+
+
+def concat_streams(caches: list[dict]) -> dict:
+    """Concatenate per-stream caches along their stream axis (new tensors).
+    Arrays without a stream axis are taken from the first cache."""
+    first = caches[0]["attn"]
+    axes = _stream_axes(first)
+    return {"attn": {n: first[n] if axes[n] is None else torch.cat([c["attn"][n] for c in caches], axes[n])
+                     for n in first}}
+
+
+def merge_streams(new: dict, old: dict, keep) -> dict:
+    """Per-stream select: row b of the result is ``new``'s where keep[b],
+    else ``old``'s.  The freeze primitive of padded lockstep stepping.
+
+    k/v that ``new`` shares with ``old`` (a pass wrote into the cache it was
+    given) are kept as they are: the frozen rows' writes stay in lanes whose
+    pos is -1 (module docstring).  Distinct k/v are selected by row, or by
+    physical block in a paged arena (a block takes ``new``'s content iff a
+    keep row maps it)."""
+    an, ao = new["attn"], old["attn"]
+    keep = torch.as_tensor(keep, device=an["k"].device).bool()
+    axes = _stream_axes(an)
+
+    def sel(name):
+        n, o = an[name], ao[name]
+        if n is o or axes[name] is None:
+            return n
+        shape = [1] * n.dim()
+        shape[axes[name]] = keep.shape[0]
+        return torch.where(keep.reshape(shape), n, o)
+
+    if is_paged(new):
+        tbl = an["block_tbl"]
+        out = {"pos": sel("pos"), "len": sel("len"),
+               "block_tbl": torch.where(keep[:, None], tbl, ao["block_tbl"])}
+        if an["k"] is ao["k"] and an["v"] is ao["v"]:
+            out["k"], out["v"] = an["k"], an["v"]
+        else:
+            owned = torch.zeros((an["k"].shape[1],), dtype=torch.int32, device=tbl.device)
+            owned.index_add_(0, tbl.long().clamp_min(0).reshape(-1),
+                             (keep[:, None] & (tbl >= 0)).to(torch.int32).reshape(-1))
+            bsel = (owned > 0)[None, :, None, None, None]
+            out["k"] = torch.where(bsel, an["k"], ao["k"])
+            out["v"] = torch.where(bsel, an["v"], ao["v"])
+        return {"attn": out}
+    return {"attn": {name: sel(name) for name in an}}
 
 
 def clone_cache(cache: dict) -> dict:
     """A copy whose k/v a forward pass may write without touching ``cache``."""
     return {key: ({n: t.clone() for n, t in val.items()} if isinstance(val, dict) else val.clone())
             for key, val in cache.items()}
+
+
+# ------------------------------------------------------------------ pools ---
+
+
+class CachePool:
+    """Fixed-capacity slot pool over a per-stream cache: one batched cache
+    of ``n_slots`` rows plus free-row bookkeeping, so streams join (prefill a
+    1-row cache, scatter it in) and leave (release the row) while every
+    model call sees the same (n_slots, ...) shapes.  Rows are handed out
+    lowest index first.  (The JAX pool's double-buffered frames serve
+    recurrent drafts only, which this package does not run yet: ROADMAP
+    queue 1 item 9.)"""
+
+    def __init__(self, cache: dict, n_slots: int):
+        self.cache = cache
+        self.n_slots = n_slots
+        self._free = list(range(n_slots))
+
+    def invalidate_from(self, starts: dict[int, int]) -> None:
+        """Erase rows' speculative attention writes: for each {row: start},
+        set pos = -1 on every lane holding a position >= start and rewind
+        the row's len to start.  The orphaned KV lanes keep their content,
+        barred from every mask by pos = -1."""
+        if not starts:
+            return
+        attn = dict(self.cache["attn"])
+        dev = attn["pos"].device
+        rows = torch.as_tensor(np.fromiter(starts.keys(), np.int64), device=dev)
+        st = torch.as_tensor(np.fromiter(starts.values(), np.int32), device=dev)
+        pos, length = attn["pos"].clone(), attn["len"].clone()
+        sub = pos[rows]
+        pos[rows] = torch.where(sub >= st[:, None], -1, sub)
+        length[rows] = st
+        attn["pos"], attn["len"] = pos, length
+        self.cache = {**self.cache, "attn": attn}
+
+    @property
+    def free_slots(self) -> int:
+        return len(self._free)
+
+    def acquire(self) -> int:
+        if not self._free:
+            raise RuntimeError("cache pool exhausted")
+        return self._free.pop(0)
+
+    def release(self, slot: int) -> None:
+        if slot in self._free:
+            raise ValueError(f"row {slot} released twice")
+        self._free.append(slot)
+        self._free.sort()
+
+    def admit(self, row_cache: dict, ctx_len: int = 0) -> int:
+        """Scatter a freshly prefilled 1-row per-stream cache into a free row."""
+        slot = self.acquire()
+        self.cache = scatter_streams(self.cache, row_cache, [slot])
+        return slot
+
+
+class PagedCachePool(CachePool):
+    """The CachePool API over a block arena.
+
+    Streams own blocks from a shared free list, a min-heap so allocation is
+    lowest id first (block 0 is the trash block and never handed out).  The
+    host mirrors the block tables, so allocation never reads device memory;
+    every table change pushes one small (n_slots, max_blocks) int32 copy.
+
+      * ``admit(row, ctx_len)`` maps blocks for the prefilled context, then
+        scatters the dense row through the table;
+      * ``ensure(slot, upto)`` maps unmapped logical blocks covering
+        [0, upto) before a step's writes;
+      * ``reclaim_tail(slot, keep_upto)`` unmaps blocks wholly past a
+        stream's live frontier;
+      * ``release(slot)`` returns every block to the free list.
+    """
+
+    def __init__(self, cache: dict, n_slots: int):
+        super().__init__(cache, n_slots)
+        if not is_paged(cache):
+            raise ValueError("PagedCachePool needs a paged attn cache")
+        attn = self.cache["attn"]
+        self.block = int(attn["k"].shape[2])
+        self.max_blocks = int(attn["block_tbl"].shape[1])
+        self.total_blocks = int(attn["k"].shape[1]) - 1  # minus trash
+        self._tbl = np.full((n_slots, self.max_blocks), -1, np.int32)
+        self._free_blocks = list(range(1, self.total_blocks + 1))  # sorted, hence a heap
+        self._pending_pos: dict[int, int] = {}  # deferred pos resets (reclaim_tails)
+
+    @property
+    def free_blocks(self) -> int:
+        return len(self._free_blocks)
+
+    @property
+    def used_blocks(self) -> int:
+        return self.total_blocks - len(self._free_blocks)
+
+    def blocks_for(self, upto: int) -> int:
+        """Logical blocks covering slots [0, upto)."""
+        return min(-(-max(upto, 0) // self.block), self.max_blocks)
+
+    def missing_blocks(self, slot: int, upto: int) -> int:
+        """How many of the blocks covering [0, upto) row ``slot`` has yet to map."""
+        return int(np.sum(self._tbl[slot, :self.blocks_for(upto)] < 0))
+
+    def _sync_tbl(self) -> None:
+        attn = dict(self.cache["attn"])
+        attn["block_tbl"] = torch.tensor(self._tbl, device=attn["block_tbl"].device)  # a copy
+        self.cache = {**self.cache, "attn": attn}
+
+    def ensure(self, slot: int, upto: int, sync: bool = True) -> bool:
+        """Map every unmapped logical block covering [0, upto).  Returns
+        False (mapping nothing) when the free list is too short.
+        ``sync=False`` defers the device table push (``ensure_rows``)."""
+        idx = [i for i in range(self.blocks_for(upto)) if self._tbl[slot, i] < 0]
+        if len(idx) > len(self._free_blocks):
+            return False
+        if idx:
+            for i in idx:
+                self._tbl[slot, i] = heapq.heappop(self._free_blocks)
+            if sync:
+                self._sync_tbl()
+        return True
+
+    def ensure_rows(self, frontiers: dict) -> bool:
+        """``ensure`` for every {slot: upto} with ONE table push."""
+        ok = True
+        for slot, upto in frontiers.items():
+            ok = self.ensure(slot, upto, sync=False) and ok
+        self._sync_tbl()
+        return ok
+
+    def _reset_pos_tails(self, starts: dict) -> None:
+        """pos[slot, start:] = -1 for every {slot: start}, in one round."""
+        if not starts:
+            return
+        attn = dict(self.cache["attn"])
+        dev = attn["pos"].device
+        rows = np.fromiter(starts.keys(), np.int64)
+        st = np.fromiter((starts[r] for r in rows), np.int64)
+        smax = attn["pos"].shape[1]
+        dead = torch.as_tensor(np.arange(smax)[None, :] >= st[:, None], device=dev)
+        rows_t = torch.as_tensor(rows, device=dev)
+        pos = attn["pos"].clone()
+        pos[rows_t] = torch.where(dead, -1, pos[rows_t])
+        attn["pos"] = pos
+        self.cache = {**self.cache, "attn": attn}
+
+    def reclaim_tail(self, slot: int, keep_upto: int, sync: bool = True) -> int:
+        """Unmap mapped blocks wholly past the row's live frontier and return
+        them to the free list; reset the freed slots' pos to -1.
+        ``sync=False`` defers the push and the reset (``reclaim_tails``)."""
+        first = self.blocks_for(keep_upto)
+        freed = [i for i in range(first, self.max_blocks) if self._tbl[slot, i] >= 0]
+        if not freed:
+            return 0
+        for i in freed:
+            heapq.heappush(self._free_blocks, int(self._tbl[slot, i]))
+            self._tbl[slot, i] = -1
+        if sync:
+            self._sync_tbl()
+            self._reset_pos_tails({slot: freed[0] * self.block})
+        else:
+            self._pending_pos[slot] = min(freed[0] * self.block, self._pending_pos.get(slot, 1 << 30))
+        return len(freed)
+
+    def reclaim_tails(self, frontiers: dict) -> int:
+        """``reclaim_tail`` over {slot: keep_upto} with one table push and
+        one pos reset."""
+        self._pending_pos = {}
+        freed = sum(self.reclaim_tail(s, keep, sync=False) for s, keep in frontiers.items())
+        if freed:
+            self._sync_tbl()
+            self._reset_pos_tails(self._pending_pos)
+        self._pending_pos = {}
+        return freed
+
+    def release(self, slot: int) -> None:
+        owned = self._tbl[slot][self._tbl[slot] >= 0]
+        if owned.size:
+            for b in owned:
+                heapq.heappush(self._free_blocks, int(b))
+            self._tbl[slot] = -1
+            self._sync_tbl()
+        super().release(slot)
+
+    def admit(self, row_cache: dict, ctx_len: int = 0) -> int:
+        """Acquire a row, map blocks for the prefilled context, scatter the
+        dense row through the table.  An exhausted free list here is a
+        scheduling bug: callers gate on ``free_blocks`` first."""
+        slot = self.acquire()
+        if not self.ensure(slot, ctx_len):
+            super().release(slot)
+            raise RuntimeError(f"paged pool out of blocks admitting a {ctx_len}-token context "
+                               f"({self.free_blocks} free)")
+        self.cache = scatter_streams(self.cache, row_cache, [slot])
+        return slot
+
+
+def make_cache_pool(cache: dict, n_slots: int) -> CachePool:
+    """Paged pools for paged caches, ring pools otherwise."""
+    return (PagedCachePool if is_paged(cache) else CachePool)(cache, n_slots)

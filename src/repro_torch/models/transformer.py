@@ -6,21 +6,27 @@ a leading L axis (``params["blocks"]["attn"]["wq"]`` is (L, d, H*hd)), so the
 bridge maps one to one.  Each ``lax.scan`` over layers is a Python loop over
 layer views.
 
-Every masked attention pass goes through ``kernels.ops.gqa_tree_attention``,
-as the JAX ``attention_impl="pallas"`` path does: a pass whose tensors lie
-on the CPU takes the plain version, one on the card launches the Hopper
-kernel, once per layer.
+Every masked attention pass goes through ``kernels.ops``, as the JAX
+``attention_impl="pallas"`` path does: ``gqa_tree_attention`` over a ring
+cache (or none), ``gqa_paged_tree_attention`` over a paged pool and
+``gqa_ragged_tree_attention`` for the ragged tree pass.  A pass whose
+tensors lie on the CPU takes the plain versions, one on the card launches
+the Hopper kernels, once per layer.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.ops import gqa_tree_attention
+from repro_torch.kernels.ops import gqa_paged_tree_attention, gqa_ragged_tree_attention, gqa_tree_attention
 from repro_torch.models.cache import (
     append_layer_kv,
     attn_mask_from_pos,
     cache_slots,
     init_attn_cache,
+    init_paged_attn_cache,
+    paged_append_layer_kv,
+    paged_phys_slots,
+    ragged_tree_mask,
     tree_mask_from_pos,
 )
 from repro_torch.models.layers import (
@@ -98,22 +104,50 @@ def init_params(cfg, gen: torch.Generator) -> dict:
 # ----------------------------------------------------------------- blocks ----
 
 
-def _self_attention(p, cfg, x, positions, mask, layer_cache):
-    """layer_cache: None or (k, v, slots) views of one layer of the ring."""
+def _self_attention(p, cfg, x, positions, mask, layer_cache, ragged=None):
+    """layer_cache: None or (k, v, slots, page) views of one layer, with
+    page = None (ring cache) or the (B, max_blocks) block table of a paged
+    pool.  ragged: None, or the (N,) owner row of each node of the ragged
+    tree pass (-1 = padding lane); then x is (1, N, d), ``slots`` are
+    per-node ring slots in the owner's row (Smax = padding lane) and
+    ``mask`` is (N, Smax)."""
     B, T, _ = x.shape
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     q, k, v = project_qkv(p["attn"], cfg, h)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
-    if layer_cache is not None:
-        kc, vc, slots = layer_cache
-        k, v = append_layer_kv(kc, vc, k, v, slots)
-    att = gqa_tree_attention(q, k, v, mask[:, 0])
+    if ragged is not None:
+        kc, vc, slots, page_tbl = layer_cache
+        # each node into its owner's mapped lane; padding lanes (slot
+        # sentinel) and unmapped blocks into the trash block, where JAX drops
+        # the write
+        block = kc.shape[1]
+        smax = page_tbl.shape[1] * block
+        sl = torch.where(slots < smax, slots, 0)
+        lanes = paged_phys_slots(page_tbl[ragged.long().clamp_min(0)], sl[:, None], block)[:, 0]
+        lanes = torch.where(slots < smax, lanes, 0).long()
+        kf = kc.view((-1,) + kc.shape[2:])
+        vf = vc.view((-1,) + vc.shape[2:])
+        kf.index_copy_(0, lanes, k[0].to(kf.dtype))
+        vf.index_copy_(0, lanes, v[0].to(vf.dtype))
+        att = gqa_ragged_tree_attention(q[0], kc, vc, page_tbl, ragged, mask)
+        return x + att.reshape(1, T, -1) @ p["attn"]["wo"]
+    m3 = mask[:, 0]
+    if layer_cache is None:
+        att = gqa_tree_attention(q, k, v, m3)
+    else:
+        kc, vc, slots, page_tbl = layer_cache
+        if page_tbl is None:
+            kc, vc = append_layer_kv(kc, vc, k, v, slots)
+            att = gqa_tree_attention(q, kc, vc, m3)
+        else:
+            paged_append_layer_kv(kc, vc, k, v, slots, page_tbl)
+            att = gqa_paged_tree_attention(q, kc, vc, page_tbl, m3)
     return x + att.reshape(B, T, -1) @ p["attn"]["wo"]
 
 
-def _attn_mlp_block(p, cfg, x, positions, mask, layer_cache):
-    x = _self_attention(p, cfg, x, positions, mask, layer_cache)
+def _attn_mlp_block(p, cfg, x, positions, mask, layer_cache, ragged=None):
+    x = _self_attention(p, cfg, x, positions, mask, layer_cache, ragged)
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
     return x + swiglu(p["mlp"], h)
 
@@ -122,7 +156,7 @@ def _attn_mlp_block(p, cfg, x, positions, mask, layer_cache):
 
 
 def _mk_masks(cfg, mode, T, pos, positions, anc, slots):
-    """The full-attention mask of a pass, (1 or Ba, 1, T, S).
+    """The full-attention mask of a pass, (1 or B, 1, T, S).
 
     ``pos`` is the slot->absolute-position table *after* writing the new
     tokens, so queries can see themselves and each other causally.  (The
@@ -136,22 +170,41 @@ def _mk_masks(cfg, mode, T, pos, positions, anc, slots):
     return tree_mask_from_pos(pos, positions, anc, slots, win)
 
 
-def _tree_depths(anc: torch.Tensor) -> torch.Tensor:
-    """Position offsets of tree tokens = (ancestor count - 1).  A (Ba, T, T)
-    anc shares one topology in the lockstep cache (depths from row 0)."""
+def _tree_depths(anc: torch.Tensor, per_stream: bool = False) -> torch.Tensor:
+    """Position offsets of tree tokens = (ancestor count - 1).  A (B, T, T)
+    anc gives per-row depths (B, T) over a per-stream cache and shares one
+    topology (depths from row 0) over a lockstep cache."""
+    if anc.dim() == 3 and per_stream:
+        return anc.to(torch.int32).sum(dim=-1, dtype=torch.int32) - 1
     a = anc if anc.dim() == 2 else anc[0]
     return a.to(torch.int32).sum(dim=-1, dtype=torch.int32) - 1
 
 
 def forward(params: dict, cfg, tokens: torch.Tensor, *, mode: str = "full",
-            cache: dict | None = None, anc: torch.Tensor | None = None):
+            cache: dict | None = None, anc: torch.Tensor | None = None,
+            lens: torch.Tensor | None = None, ragged: dict | None = None):
     """Returns (logits fp32 (B, T, V), new_cache, {"hidden": (B, T, d)}).
 
     mode "full":   causal pass over tokens; if ``cache`` is given it is
                    filled (prefill), else no cache is built.
     mode "decode": T new tokens against the cache.
     mode "tree":   T speculation-tree tokens with ancestor mask ``anc``
-                   ((T, T) or (Ba, T, T) bool).
+                   ((T, T), or (B, T, T) per row over a per-stream cache).
+    lens:          (B,) real-token counts of a padded pass over a per-stream
+                   cache: row b's tokens past lens[b] are written but marked
+                   invalid (pos = -1), and its length advances by lens[b].
+    ragged:        the node-major ragged tree pass (mode "tree", no ``anc``)
+                   over a PAGED per-stream cache: ``tokens`` is (1, N), every
+                   active stream's tree flattened; dict of (N,) int32
+                   ``owner`` (pool row), ``parent`` (flat index, -1 root or
+                   padding), ``depth``, ``local`` (index within its tree,
+                   -1 padding) and (B,) ``counts`` (nodes appended per row).
+                   Padding lanes write only the trash block, and their
+                   attention reads nothing and gives zeros (the JAX package
+                   attends them over row ``owner``); their outputs are
+                   discarded.  (The JAX package also runs it over a
+                   ring cache, where it drops padding writes; the batched
+                   engine here goes ragged on a paged pool only.)
     The new K/V are written into ``cache``'s k/v in place (models/cache.py);
     ``new_cache`` shares them and carries new pos/len tensors.
     """
@@ -162,29 +215,66 @@ def forward(params: dict, cfg, tokens: torch.Tensor, *, mode: str = "full",
     dev = x.device
 
     length = cache["attn"]["len"] if cache is not None else torch.zeros((), dtype=torch.int32, device=dev)
-    offs = torch.arange(T, dtype=torch.int32, device=dev) if anc is None else _tree_depths(anc)
-    positions = length + offs
+    per_stream = length.dim() == 1
+    owner = None
+    if ragged is not None:
+        if mode != "tree" or anc is not None or lens is not None or cache is None:
+            raise ValueError("ragged is a tree pass over a cache, without anc or lens")
+        if not (per_stream and "block_tbl" in cache["attn"]):
+            raise NotImplementedError("the ragged tree pass needs a paged per-stream cache in this package")
+        owner = ragged["owner"]
+        q_pos = length[owner.long()] + ragged["depth"]  # (N,) absolute positions
+        positions = q_pos[None, :]
+    else:
+        offs = torch.arange(T, dtype=torch.int32, device=dev) if anc is None else _tree_depths(anc, per_stream)
+        positions = length[:, None] + (offs if offs.dim() == 2 else offs[None, :]) if per_stream \
+            else length + offs
 
     new_cache = None
-    slots = None
+    slots = page_tbl = None
     if cache is not None:
         if mode == "full":
             mode = "decode"  # prefill == appending T tokens causally to an empty cache
         a = cache["attn"]
-        slots = cache_slots(length, T, a["pos"].shape[0])
-        new_pos = a["pos"].clone()
-        new_pos[slots.long()] = positions
-        mask = _mk_masks(cfg, mode, T, new_pos, positions, anc, slots)
-        new_cache = dict(cache)
-        new_cache["attn"] = {"k": a["k"], "v": a["v"], "pos": new_pos, "len": length + T}
+        page_tbl = a.get("block_tbl")
+        smax = a["pos"].shape[-1]
+        if ragged is not None:
+            local = ragged["local"]
+            slots = torch.where(local >= 0, (length[owner.long()] + local.clamp_min(0)) % smax, smax)
+            # the sentinel column smax takes the padding lanes' writes and is cut off
+            pos_ext = torch.cat([a["pos"], a["pos"].new_full((a["pos"].shape[0], 1), -1)], dim=1)
+            pos_ext[owner.long(), slots.long()] = q_pos.to(pos_ext.dtype)
+            new_pos = pos_ext[:, :smax].contiguous()
+            new_len = length + ragged["counts"]
+            win = cfg.window if cfg.attention == "sliding_window" else 0
+            mask = ragged_tree_mask(new_pos, q_pos, owner, slots, ragged["parent"], win)
+            owner = torch.where(local >= 0, owner, -1)  # the kernel skips padding lanes
+        else:
+            slots = cache_slots(length, T, smax)
+            pos_vals = positions
+            if lens is not None:
+                valid = torch.arange(T, device=dev)[None, :] < lens[:, None]
+                pos_vals = torch.where(valid, positions, -1)
+            new_pos = a["pos"].clone()
+            if per_stream:
+                bidx = torch.arange(B, device=dev)[:, None]
+                new_pos[bidx, slots.long()] = pos_vals.to(new_pos.dtype)
+            else:
+                new_pos[slots.long()] = pos_vals.to(new_pos.dtype)
+            new_len = length + (T if lens is None else lens)
+            mask = _mk_masks(cfg, mode, T, new_pos, positions, anc, slots)
+        new_attn = {"k": a["k"], "v": a["v"], "pos": new_pos, "len": new_len.to(torch.int32)}
+        if page_tbl is not None:
+            new_attn["block_tbl"] = page_tbl
+        new_cache = {**cache, "attn": new_attn}
     else:
         mask = _mk_masks(cfg, "full", T, None, positions, None, None)
 
     blocks = params["blocks"]
     for i in range(cfg.n_layers):
         pl = _map(lambda t: t[i], blocks)
-        layer_cache = None if cache is None else (cache["attn"]["k"][i], cache["attn"]["v"][i], slots)
-        x = _attn_mlp_block(pl, cfg, x, positions, mask, layer_cache)
+        layer_cache = None if cache is None else (cache["attn"]["k"][i], cache["attn"]["v"][i], slots, page_tbl)
+        x = _attn_mlp_block(pl, cfg, x, positions, mask, layer_cache, owner)
 
     x = rms_norm(x, params["final_ln"], cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
@@ -195,7 +285,17 @@ def forward(params: dict, cfg, tokens: torch.Tensor, *, mode: str = "full",
 # ------------------------------------------------------------------ cache ----
 
 
-def init_cache(cfg, batch: int, smax: int, device) -> dict:
-    """Empty lockstep decode cache (models/cache.py layout)."""
+def init_cache(cfg, batch: int, smax: int, device, per_stream: bool = False,
+               page: tuple[int, int] | None = None) -> dict:
+    """Empty decode cache (models/cache.py layouts).  per_stream: per-row
+    pos/len tables (the continuous-batching layout).  page: (pool_blocks,
+    block_size) stores the KV as a paged arena of ``pool_blocks`` usable
+    blocks shared through per-row block tables, with ``smax`` each row's
+    logical capacity; requires per_stream."""
     _require_dense(cfg)
-    return {"attn": init_attn_cache(cfg, cfg.n_layers, batch, smax, cfg.tdtype, device)}
+    if page is not None and not per_stream:
+        raise ValueError("paged caches are per-stream by construction")
+    if page is not None:
+        return {"attn": init_paged_attn_cache(cfg, cfg.n_layers, batch, page[0], page[1], smax,
+                                              cfg.tdtype, device)}
+    return {"attn": init_attn_cache(cfg, cfg.n_layers, batch, smax, cfg.tdtype, device, per_stream)}

@@ -1,0 +1,853 @@
+"""Continuous-batching speculative engine: N concurrent streams per model call.
+
+The counterpart of ``BatchedSpeculativeEngine`` in
+src/repro/serving/batch_engine.py with the "tree" target-pass strategy.
+Every active stream is packed into lockstep batched calls: per iteration
+one padded draft-ingest pass, one draft step per tree level, ONE tree-masked
+target pass (padded (B, Tpad), or ragged node-major when that ships fewer
+lanes) and ONE fused commit, with per-stream host verification.  Each
+stream's tokens are exactly those of an independent ``SpeculativeEngine``
+run with the same seed, as long as the model's logits do not change with
+the batch (checked on the CPU in float32 by tests/test_torch_batch.py; on
+the card chip_smoke.py reports it).
+
+The pool is paged by default (models/cache.py): KV lives in a shared arena
+of ``block_size``-slot blocks, admission is gated on the free list, dead
+tail blocks are reclaimed under pressure, and only then is the most recently
+admitted stream evicted.  Scheduling and tokens are those of the JAX engine
+for the same seeds (tests/test_torch_batch.py).
+
+Pipelined stepping (``pipeline=True``, the default): ``begin_step`` runs the
+scheduling boundary and dispatches the draft and tree-pass work, returning a
+``PendingStep`` whose tree outputs are being copied to pinned host memory
+behind a CUDA event; ``verify_step`` waits on that event and verifies on the
+host; ``commit_step`` issues the fused commit; ``retire_step`` does the
+bookkeeping, releases finished streams, begins the NEXT step, and only then
+reads the hidden states back.  Scheduling, and therefore tokens, stay those
+of the synchronous engine: every release lands before the begun-ahead
+boundary, and ``submit`` drains or rewinds a begun step that its request
+could have joined.
+
+In-place writes: the model passes write K/V into the pools' arenas in
+place.  Trunk drafting writes its speculative KV into the draft arena
+(where the JAX engine drafts on a discarded functional copy); those lanes
+lie at or past each row's ``len``, keep pos = -1 in the persisted pool and
+are rewritten by the next ingest before any mask admits them
+(models/cache.py, the frontier invariant).
+
+Not ported here: the replay strategy of recurrent targets (ROADMAP queue 1
+item 9), sharding over a mesh (item 8), on-device verification (item 11)
+and the ``peek_*_dist`` oracles of the analytic selector (item 12).
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from repro_torch.core.trees import DraftTree
+from repro_torch.core.verify import get_verifier
+from repro_torch.models.cache import PagedCachePool, fork_streams, make_cache_pool
+from repro_torch.models.transformer import forward, init_cache
+from repro_torch.sampling import warp_logits
+from repro_torch.serving.engine import (
+    EngineConfig,
+    SamplingParams,
+    SpeculativeEngine,
+    draw_token,
+    to_verifier_dtype,
+    verify_tree,
+)
+from repro_torch.serving.serve_step import (
+    StagingBuffers,
+    make_pool_commit_step,
+    make_pool_decode_step,
+    make_pool_locked_step,
+    make_pool_ragged_tree_step,
+    make_pool_tree_step,
+    next_pow2 as _next_pow2,
+)
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    return t.float().cpu().numpy()
+
+
+class HostCopy:
+    """A device tensor on its way to the host: on a CUDA device a
+    non-blocking copy into pinned memory, recorded with an event that
+    ``numpy()`` waits on (the JAX engine's ``copy_to_host_async`` future)."""
+
+    def __init__(self, t: torch.Tensor):
+        t = t.float()
+        if t.device.type == "cuda":
+            self._host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            self._host.copy_(t, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            self._host, self._event = t, None
+
+    def numpy(self) -> np.ndarray:
+        if self._event is not None:
+            self._event.synchronize()
+        return self._host.numpy()
+
+
+@dataclass
+class BatchRequest:
+    rid: int
+    prompt: list
+    max_new: int
+    seed: int
+
+
+@dataclass
+class PendingStep:
+    """A dispatched-but-unverified iteration.  ``p_dev``/``hid_dev`` are the
+    warped tree-pass distributions and hidden states on their way to the
+    host; ``C0`` (committed length minus the pending root) and ``D0`` (the
+    draft pool's pre-ingest length), with the ``rng_state`` snapshots
+    (pipelined mode), are the rewind coordinates of ``abort_step``.
+    ``roffs`` is ({slot: (offset, n_nodes)}, Npad) for a ragged pass, None
+    for the padded (B, Tpad) layout.  ``boundary_evicted`` is True when the
+    step's scheduling boundary evicted a stream (submit's drain rule)."""
+
+    active: list[int]
+    acts: dict[int, tuple]
+    pads: tuple[int, int, int, int]
+    trees: dict
+    hq: dict
+    C0: dict[int, int]
+    p_dev: HostCopy | None = None
+    hid_dev: HostCopy | None = None
+    rng_state: dict | None = None
+    D0: dict[int, int] | None = None
+    roffs: object = None
+    boundary_evicted: bool = False
+
+
+@dataclass
+class VerifiedStep:
+    """``verify_step``'s per-stream accept/correction decisions."""
+
+    pending: PendingStep
+    accepted: dict[int, list]
+    corr: dict[int, int]
+    node_paths: dict | None = None
+
+
+class BatchedSpeculativeEngine:
+    """Multi-stream speculative decoding over a slot-based cache pool.
+
+    API: ``submit(prompt, max_new, seed) -> rid``; ``step()`` advances every
+    active stream one speculative block (admitting queued requests first)
+    and returns per-request progress; ``run()`` drains the queue and returns
+    ``{rid: {"tokens", "reason"}}``.  The weights' device is the engine's
+    device.  ``ragged``: True (auto: ragged whenever the flat buffer ships
+    fewer lanes than the padded block), ``"always"`` or False."""
+
+    def __init__(self, target_cfg, target_params, draft_cfg, draft_params,
+                 ecfg: EngineConfig, sampling: SamplingParams | None = None,
+                 selector=None, n_slots: int = 4, paged: bool = True,
+                 block_size: int = 64, pool_blocks: int | None = None,
+                 pipeline: bool = True, mesh=None, shard_id: int = 0, ragged=True):
+        if target_cfg.vocab != draft_cfg.vocab:
+            raise ValueError(f"target vocab {target_cfg.vocab} != draft vocab {draft_cfg.vocab}")
+        if n_slots < 1:
+            raise ValueError(f"need at least one pool slot, got {n_slots}")
+        if mesh is not None or shard_id:
+            raise NotImplementedError("sharding the pool over a mesh is not ported: ROADMAP queue 1 item 8")
+        if target_cfg.arch_type in ("ssm", "hybrid") or draft_cfg.arch_type in ("ssm", "hybrid"):
+            raise NotImplementedError("the replay strategy and recurrent drafts are not ported: "
+                                      "ROADMAP queue 1 item 9")
+        if ecfg.verify_on_device:
+            raise NotImplementedError("on-device verification is not ported: ROADMAP queue 1 item 11")
+        get_verifier(ecfg.verifier)  # fail loudly on unknown names, at build time
+        self.tc, self.tp = target_cfg, target_params
+        self.dc, self.dp = draft_cfg, draft_params
+        self.device = target_params["embed"].device
+        if draft_params["embed"].device != self.device:
+            raise ValueError(f"target weights on {self.device}, draft weights on "
+                             f"{draft_params['embed'].device}")
+        self.ecfg = ecfg
+        self.sampling = sampling or SamplingParams()
+        self.selector = selector
+        self.n_slots = n_slots
+        self.strategy = "tree"
+        smax = ecfg.max_cache
+        page = None
+        if paged:
+            bs = self.normalize_block_size(smax, block_size)
+            self.block_size = bs
+            self.max_blocks = smax // bs
+            if pool_blocks is None:
+                # ring-equivalent capacity: scheduling is then that of the ring pool
+                pool_blocks = n_slots * self.max_blocks
+            if pool_blocks < 1:
+                raise ValueError("the arena needs at least one usable block")
+            self.pool_blocks = pool_blocks
+            page = (pool_blocks, bs)
+        self.tpool = make_cache_pool(init_cache(target_cfg, n_slots, smax, self.device, True, page), n_slots)
+        self.dpool = make_cache_pool(init_cache(draft_cfg, n_slots, smax, self.device, True, page), n_slots)
+        self.paged = paged
+        self.ragged = ragged
+        # the JAX "pallas" rule: the ragged pass needs the block-table kernel.
+        # That kernel takes each node's owner from its own row, so segments
+        # pack back to back (the JAX Pallas kernel 8-aligns them instead)
+        self._ragged_ok = bool(ragged) and isinstance(self.tpool, PagedCachePool)
+        self.streams: dict[int, dict] = {}  # slot -> stream state
+        self.queue: list[BatchRequest] = []
+        self.finished: dict[int, dict] = {}
+        self._next_rid = 0
+        self._admit_seq = 0
+        self.pipeline = pipeline
+        self._staging = StagingBuffers(self.device, banks=2 if pipeline else 1)
+        self._pending_next: PendingStep | None = None
+        self._drained_events: list[dict] = []
+        self._steps = {
+            "ingest": make_pool_decode_step(draft_cfg),
+            "trunk": make_pool_locked_step(draft_cfg),
+            "tree": make_pool_tree_step(target_cfg),
+            "ragged": make_pool_ragged_tree_step(target_cfg),
+        }
+        # pipeline_ahead + pipeline_stalls == pipeline_iterations by
+        # construction; pad_fraction = pad_nodes_total / tree_lanes_total
+        self.counters = {"target_calls": 0, "target_tokens": 0, "draft_calls": 0,
+                         "draft_tokens": 0, "accepted": 0, "blocks": 0, "evicted": 0,
+                         "commit_calls": 0, "commit_ms": 0.0,  # commit_ms: host time to dispatch
+                         "blocks_reclaimed": 0, "admit_blocked": 0, "blocks_peak": 0,
+                         "pad_nodes_total": 0, "tree_lanes_total": 0,
+                         "pipeline_ahead": 0, "pipeline_stalls": 0,
+                         "pipeline_iterations": 0, "ragged_calls": 0, "padded_calls": 0}
+
+    # ------------------------------------------------------------- helpers ---
+
+    @staticmethod
+    def normalize_block_size(smax: int, block_size: int) -> int:
+        """Round the block size down to a power of two, then halve it until
+        it divides ``smax``."""
+        bs = max(1, min(block_size, smax))
+        bs = 1 << (bs.bit_length() - 1)
+        while smax % bs:
+            bs //= 2
+        return bs
+
+    def _stage(self, name, shape, dtype, fill=0):
+        return self._staging.get(name, shape, dtype, fill)
+
+    def _up(self, buf: np.ndarray) -> torch.Tensor:
+        return self._staging.upload(buf)
+
+    def _warp(self, logits):
+        return warp_logits(logits, self.sampling.temperature, self.sampling.top_p)
+
+    # ------------------------------------------------------------ requests ---
+
+    def submit(self, prompt: list[int], max_new: int = 64, seed: int | None = None) -> int:
+        """Queue a request; it is admitted when a pool row frees up.  ``seed``
+        drives this stream's randomness: a single-stream ``SpeculativeEngine``
+        with ``EngineConfig(seed=seed)`` emits the same tokens."""
+        if not 1 <= len(prompt) < self.ecfg.max_cache:
+            raise ValueError(f"prompt of {len(prompt)} tokens cannot fit a {self.ecfg.max_cache}-slot cache ring")
+        if self.paged:
+            need = self._admit_need(len(prompt))
+            cap = min(p.total_blocks for p in self._paged_pools())
+            if need > cap:
+                raise ValueError(f"prompt of {len(prompt)} tokens needs {need} blocks "
+                                 f"(context + one speculation bucket); the arena has {cap}")
+        if self._pending_next is not None and self.tpool.free_slots:
+            # stall-and-drain: a begun-ahead step locked in admission without
+            # this request although a row is free.  If its boundary evicted,
+            # the release stands: retire the step (its events surface at the
+            # next step()); otherwise rewind it so the next begin_step re-runs
+            # the identical boundary with this request queued.
+            pending, self._pending_next = self._pending_next, None
+            if pending.boundary_evicted:
+                self._drained_events.extend(self.finish_step(pending, pipeline_ahead=False))
+            else:
+                self.abort_step(pending)
+        rid = self._next_rid
+        self._next_rid += 1
+        self.queue.append(BatchRequest(rid, list(prompt), max_new,
+                                       self.ecfg.seed if seed is None else seed))
+        return rid
+
+    def _prefill_row(self, cfg, params, ctx):
+        """Prefill a fresh 1-row per-stream ring with ``ctx`` tokens, padded
+        to a power of two (never past the ring)."""
+        row = init_cache(cfg, 1, self.ecfg.max_cache, self.device, per_stream=True)
+        if not ctx:
+            return row, None
+        T = len(ctx)
+        Tp = min(_next_pow2(T), self.ecfg.max_cache)
+        toks = np.zeros((1, Tp), np.int64)
+        toks[0, :T] = ctx
+        _, row, ex = forward(params, cfg, torch.as_tensor(toks, device=self.device), mode="full",
+                             cache=row, lens=torch.tensor([T], dtype=torch.int32, device=self.device))
+        return row, _host(ex["hidden"][0, T - 1])
+
+    def _paged_pools(self) -> list[PagedCachePool]:
+        return [p for p in (self.tpool, self.dpool) if isinstance(p, PagedCachePool)]
+
+    def _default_tpad(self) -> int:
+        return self._bucket_actions({0: (self.ecfg.K, self.ecfg.L1, self.ecfg.L2)})[3]
+
+    def _admit_need(self, prompt_len: int) -> int:
+        """Blocks a fresh stream must find free: its context plus one
+        default-action speculation bucket."""
+        return min(-(-(prompt_len + self._default_tpad()) // self.block_size), self.max_blocks)
+
+    def _admit(self):
+        while self.queue and self.tpool.free_slots:
+            req = self.queue[0]
+            if self.paged:
+                need = self._admit_need(len(req.prompt))
+                short = [p for p in self._paged_pools() if p.free_blocks < need]
+                if short:
+                    # recycle resident streams' dead tails before leaving the request queued
+                    tpad0 = self._default_tpad()
+                    keeps = {s: len(st["committed"]) - 1 + tpad0 for s, st in self.streams.items()}
+                    for pool in short:
+                        self.counters["blocks_reclaimed"] += pool.reclaim_tails(keeps)
+                    short = [p for p in self._paged_pools() if p.free_blocks < need]
+                if short:
+                    if not self.streams:
+                        raise RuntimeError(f"request {req.rid} needs {need} free blocks but the empty "
+                                           f"pool only has {min(p.free_blocks for p in short)}")
+                    self.counters["admit_blocked"] += 1
+                    break  # FIFO: the head blocks the queue until blocks free up
+            self.queue.pop(0)
+            ctx = req.prompt[:-1]
+            trow, h_p = self._prefill_row(self.tc, self.tp, ctx)
+            drow, h_q = self._prefill_row(self.dc, self.dp, ctx)
+            slot = self.tpool.admit(trow, ctx_len=len(ctx))
+            slot_d = self.dpool.admit(drow, ctx_len=len(ctx))
+            if slot != slot_d:
+                raise RuntimeError(f"target row {slot} and draft row {slot_d} diverged")
+            self._admit_seq += 1
+            self.streams[slot] = {
+                "rid": req.rid,
+                "slot": slot,
+                "seq": self._admit_seq,
+                "rng": np.random.default_rng(req.seed),
+                "max_new": req.max_new,
+                "out": [],
+                "committed": list(req.prompt),
+                "pending": int(req.prompt[-1]),
+                "draft_delta": [int(req.prompt[-1])],
+                "h_prev_p": h_p if h_p is not None else np.zeros(self.tc.d_model, np.float32),
+                "h_prev_q": h_q if h_q is not None else np.zeros(self.dc.d_model, np.float32),
+                "p_prev": None,
+                "q_prev": None,
+                "done": False,
+            }
+
+    def _finish(self, slot: int, reason: str = "length"):
+        st = self.streams.pop(slot)
+        self.finished[st["rid"]] = {"tokens": st["out"][: st["max_new"]], "reason": reason}
+        self.tpool.release(slot)
+        self.dpool.release(slot)
+
+    def choose_action(self, stream):
+        if self.selector is None:
+            return self.ecfg.K, self.ecfg.L1, self.ecfg.L2
+        return self.selector(stream, self)
+
+    # ------------------------------------------------------------ drafting ---
+
+    def _ingest_deltas(self, active):
+        """Advance the draft pool over each stream's newly committed tokens
+        in one padded pass.  Returns per-slot (q0 dist, draft hidden at the
+        new root)."""
+        Dp = _next_pow2(max(len(self.streams[s]["draft_delta"]) for s in active))
+        toks = self._stage("ing_toks", (self.n_slots, Dp), np.int32)
+        lens = self._stage("ing_lens", (self.n_slots,), np.int32)
+        for s in active:
+            d = self.streams[s]["draft_delta"]
+            toks[s, : len(d)] = d
+            lens[s] = len(d)
+        logits, cache, hidden = self._steps["ingest"](self.dp, self.dpool.cache, self._up(toks), self._up(lens))
+        self.dpool.cache = cache
+        w = _host(self._warp(logits))
+        hid = _host(hidden)
+        q0 = {s: w[s, lens[s] - 1] for s in active}
+        hq = {s: hid[s, lens[s] - 1] for s in active}
+        self.counters["draft_calls"] += 1
+        self.counters["draft_tokens"] += int(lens.sum())
+        return q0, hq
+
+    @staticmethod
+    def _bucket_actions(acts) -> tuple[int, int, int, int]:
+        """Pad the batch's (K, L1, L2) actions to power-of-two buckets:
+        (Kp, L1p, L2p, Tpad), the iteration's static shapes."""
+        Km = max(a[0] for a in acts.values())
+        L1m = max(a[1] for a in acts.values())
+        L2m = max(a[2] for a in acts.values())
+        L1p = _next_pow2(L1m) if L1m else 0
+        L2p = _next_pow2(L2m) if L2m else 0
+        Kp = _next_pow2(Km) if (L2p and Km) else 0
+        return Kp, L1p, L2p, 1 + L1p + Kp * L2p
+
+    def _frontiers(self, active, Tpad, Dp) -> dict[int, int]:
+        """Per-row live slot frontier of this iteration: the tree pass writes
+        Tpad slots from C-1 and the padded ingest Dp slots from C-d."""
+        out = {}
+        for s in active:
+            C = len(self.streams[s]["committed"])
+            d = len(self.streams[s]["draft_delta"])
+            out[s] = max(C - 1 + Tpad, C - d + Dp)
+        return out
+
+    def _ensure_pool_blocks(self, active, acts, Tpad, Dp) -> bool:
+        """Map the blocks this step's writes need: free-list allocation,
+        dead-tail reclamation, then LIFO eviction (re-bucketing after every
+        victim).  Mutates ``active``/``acts``; returns True if it evicted."""
+        evicted = False
+        fr = self._frontiers(active, Tpad, Dp)
+        while active:
+            short = False
+            for pool in self._paged_pools():
+                need = sum(pool.missing_blocks(s, fr[s]) for s in active)
+                if need > pool.free_blocks:
+                    self.counters["blocks_reclaimed"] += pool.reclaim_tails(fr)
+                    need = sum(pool.missing_blocks(s, fr[s]) for s in active)
+                    if need > pool.free_blocks:
+                        short = True
+            if not short:
+                break
+            victim = max(active, key=lambda s: self.streams[s]["seq"])
+            self.counters["evicted"] += 1
+            self._finish(victim, reason="evicted:pool_blocks")
+            active.remove(victim)
+            del acts[victim]
+            evicted = True
+            if active:
+                _, _, _, Tpad = self._bucket_actions(acts)
+                Dp = _next_pow2(max(len(self.streams[s]["draft_delta"]) for s in active))
+                fr = self._frontiers(active, Tpad, Dp)
+            else:
+                fr = {}
+        for pool in self._paged_pools():
+            if not pool.ensure_rows(fr):
+                raise RuntimeError("free list exhausted after the pressure loop")
+        if isinstance(self.tpool, PagedCachePool):
+            self.counters["blocks_peak"] = max(self.counters["blocks_peak"], self.tpool.used_blocks)
+        return evicted
+
+    def _draft_trees(self, active, acts, q0, pads):
+        """Lockstep-draft every stream's (K, L1, L2) delayed tree.  The trunk
+        steps write into the draft pool's arena in place but keep its pos and
+        len (module docstring); the branches run on a dense fork."""
+        Kp = pads[0]
+        L1m = max(a[1] for a in acts.values())
+        L2m = max(a[2] for a in acts.values())
+        dwork = self.dpool.cache
+        cur = dict(q0)
+        trunk_tok = {s: [] for s in active}
+        trunk_q = {s: [] for s in active}
+        for j in range(L1m):
+            toks = self._stage(f"trunk_toks{j}", (self.n_slots, 1), np.int32)
+            keep = self._stage(f"trunk_keep{j}", (self.n_slots,), np.bool_, fill=False)
+            n_live = 0
+            for s in active:
+                if j < acts[s][1]:
+                    t = draw_token(self.streams[s]["rng"], cur[s])
+                    toks[s, 0] = t
+                    keep[s] = True
+                    trunk_tok[s].append(t)
+                    n_live += 1
+            logits, dwork = self._steps["trunk"](self.dp, dwork, self._up(toks), self._up(keep))
+            w = _host(self._warp(logits[:, 0]))
+            for s in active:
+                if keep[s]:
+                    cur[s] = w[s]
+                    trunk_q[s].append(w[s])
+            self.counters["draft_calls"] += 1
+            self.counters["draft_tokens"] += n_live
+
+        branch_tok = {s: [[] for _ in range(acts[s][0])] for s in active}
+        branch_q = {s: [[] for _ in range(acts[s][0])] for s in active}
+        if Kp and pads[2]:
+            dfork = fork_streams(dwork, Kp)
+            curb = np.zeros((self.n_slots * Kp, self.tc.vocab), np.float32)
+            for s in active:
+                for k in range(acts[s][0]):
+                    curb[s * Kp + k] = cur[s]
+            for j in range(L2m):
+                toks = self._stage(f"branch_toks{j}", (self.n_slots * Kp, 1), np.int32)
+                n_live = 0
+                for s in active:
+                    K, _, L2 = acts[s]
+                    if j < L2:
+                        for k in range(K):
+                            t = draw_token(self.streams[s]["rng"], curb[s * Kp + k])
+                            toks[s * Kp + k, 0] = t
+                            branch_tok[s][k].append(t)
+                            n_live += 1
+                logits, dfork, _ = forward(self.dp, self.dc, self._up(toks), mode="decode", cache=dfork)
+                w = _host(self._warp(logits[:, 0]))
+                for s in active:
+                    K, _, L2 = acts[s]
+                    if j < L2:
+                        for k in range(K):
+                            curb[s * Kp + k] = w[s * Kp + k]
+                            branch_q[s][k].append(w[s * Kp + k])
+                self.counters["draft_calls"] += 1
+                self.counters["draft_tokens"] += n_live
+
+        trees = {}
+        for s in active:
+            K, L1, L2 = acts[s]
+            tokens, parent, depth, pid, qs = [-1], [-1], [0], [0], [q0[s]]
+            node = 0
+            for j in range(L1):
+                tokens.append(trunk_tok[s][j])
+                parent.append(node)
+                depth.append(depth[node] + 1)
+                pid.append(0)
+                qs.append(trunk_q[s][j])
+                node = len(tokens) - 1
+            branch_nodes = [node] * K
+            for j in range(L2):
+                for k in range(K):
+                    tokens.append(branch_tok[s][k][j])
+                    parent.append(branch_nodes[k])
+                    depth.append(depth[branch_nodes[k]] + 1)
+                    pid.append(k)
+                    qs.append(branch_q[s][k][j])
+                    branch_nodes[k] = len(tokens) - 1
+            trees[s] = DraftTree(
+                tokens=np.asarray(tokens, np.int64),
+                parent=np.asarray(parent, np.int64),
+                depth=np.asarray(depth, np.int64),
+                q=np.stack(qs),
+                path_id=np.asarray(pid, np.int64),
+            )
+        return trees
+
+    # ----------------------------------------------------------- target -----
+
+    def _target_tree_dispatch(self, active, trees, Tpad):
+        """ONE padded tree-masked target pass over every row (idle rows
+        frozen); returns its warped distributions and hidden states on their
+        way to the host."""
+        ttoks = self._stage("tree_toks", (self.n_slots, Tpad), np.int32)
+        parents = self._stage("tree_parents", (self.n_slots, Tpad), np.int32, fill=-1)
+        keep = self._stage("tree_keep", (self.n_slots,), np.bool_, fill=False)
+        for s in active:
+            tree = trees[s]
+            n = tree.n_nodes
+            ttoks[s, :n] = tree.tokens
+            ttoks[s, 0] = self.streams[s]["pending"]
+            parents[s, :n] = tree.parent
+            keep[s] = True
+        logits, cache, hidden = self._steps["tree"](self.tp, self.tpool.cache, self._up(ttoks),
+                                                    self._up(parents), self._up(keep))
+        self.tpool.cache = cache
+        real = sum(trees[s].n_nodes for s in active)
+        self.counters["target_calls"] += 1
+        self.counters["padded_calls"] += 1
+        self.counters["target_tokens"] += real
+        self.counters["tree_lanes_total"] += self.n_slots * Tpad
+        self.counters["pad_nodes_total"] += self.n_slots * Tpad - real
+        return HostCopy(self._warp(logits)), HostCopy(hidden)
+
+    def _ragged_layout(self, active, trees):
+        """Per-stream (offset, n_nodes) segments, back to back in the flat
+        node buffer, and its power-of-two bucketed total Npad."""
+        offs, off = {}, 0
+        for s in active:
+            offs[s] = (off, trees[s].n_nodes)
+            off += trees[s].n_nodes
+        return offs, _next_pow2(off)
+
+    def _target_tree_dispatch_ragged(self, active, trees, roffs):
+        """ONE flat node-major tree pass over every active stream's tree."""
+        offs, Npad = roffs
+        toks = self._stage("rtree_toks", (Npad,), np.int32)
+        owner = self._stage("rtree_owner", (Npad,), np.int32)
+        parent = self._stage("rtree_parent", (Npad,), np.int32, fill=-1)
+        depth = self._stage("rtree_depth", (Npad,), np.int32)
+        local = self._stage("rtree_local", (Npad,), np.int32, fill=-1)
+        counts = self._stage("rtree_counts", (self.n_slots,), np.int32)
+        for s in active:
+            o, n = offs[s]
+            tree = trees[s]
+            toks[o:o + n] = tree.tokens
+            toks[o] = self.streams[s]["pending"]
+            parent[o:o + n] = np.where(tree.parent >= 0, o + tree.parent, -1)
+            depth[o:o + n] = tree.depth
+            local[o:o + n] = np.arange(n)
+            owner[o:o + n] = s
+            counts[s] = n
+        logits, cache, hidden = self._steps["ragged"](
+            self.tp, self.tpool.cache, *(self._up(a) for a in (toks, owner, parent, depth, local, counts)))
+        self.tpool.cache = cache
+        real = sum(trees[s].n_nodes for s in active)
+        self.counters["target_calls"] += 1
+        self.counters["ragged_calls"] += 1
+        self.counters["target_tokens"] += real
+        self.counters["tree_lanes_total"] += Npad
+        self.counters["pad_nodes_total"] += Npad - real
+        return HostCopy(self._warp(logits)), HostCopy(hidden)
+
+    def _commit_tables(self, active, node_paths):
+        """Stage the fused commit's tables: accepted node paths, path
+        lengths, pre-block committed lengths, the active mask, and the
+        padded path width P."""
+        B = self.n_slots
+        P = _next_pow2(max([len(node_paths[s]) for s in active] + [1]))
+        npath = self._stage("commit_path", (B, P), np.int32)
+        plen = self._stage("commit_plen", (B,), np.int32)
+        Cb = self._stage("commit_C", (B,), np.int32)
+        act = self._stage("commit_act", (B,), np.bool_, fill=False)
+        for s in active:
+            path = node_paths[s]
+            npath[s, : len(path)] = path
+            plen[s] = len(path)
+            Cb[s] = len(self.streams[s]["committed"]) - 1
+            act[s] = True
+        return npath, plen, Cb, act, P
+
+    def _commit_tree_batch(self, active, node_paths, Tpad):
+        """ONE fused commit of every active row's accepted path."""
+        npath, plen, Cb, act, _ = self._commit_tables(active, node_paths)
+        t0 = time.perf_counter()
+        self.tpool.cache = make_pool_commit_step(Tpad)(
+            self.tpool.cache, *(self._up(a) for a in (npath, plen, Cb, act)))
+        self.counters["commit_calls"] += 1
+        self.counters["commit_ms"] += (time.perf_counter() - t0) * 1e3
+
+    # ---------------------------------------------------------------- step ---
+
+    def begin_step(self) -> PendingStep | None:
+        """The DISPATCH half of a step: the scheduling boundary (admission,
+        capacity eviction, block mapping), then the draft ingest, the
+        delayed-tree drafting and the target tree pass.  Returns None when
+        nothing is active."""
+        self._staging.flip()
+        self._admit()
+        active = [s for s in sorted(self.streams) if not self.streams[s]["done"]]
+        if not active:
+            return None
+        acts = {s: tuple(self.choose_action(self.streams[s])) for s in active}
+        # a stream whose ring cannot hold another padded speculation block or
+        # the padded ingest must finish instead of wrapping onto live slots
+        _, _, _, Tpad = self._bucket_actions(acts)
+        Dp = _next_pow2(max(len(self.streams[s]["draft_delta"]) for s in active))
+        smax = self.ecfg.max_cache
+        boundary_evicted = False
+        for s in list(active):
+            C = len(self.streams[s]["committed"])
+            d = len(self.streams[s]["draft_delta"])
+            if C - 1 + Tpad > smax or C - d + Dp > smax:
+                self.counters["evicted"] += 1
+                self._finish(s, reason="evicted:cache_full")
+                active.remove(s)
+                del acts[s]
+                boundary_evicted = True
+        if not active:
+            return None
+        pads = self._bucket_actions(acts)
+        Tpad = pads[3]
+        if self.paged:
+            Dp = _next_pow2(max(len(self.streams[s]["draft_delta"]) for s in active))
+            if self._ensure_pool_blocks(active, acts, Tpad, Dp):
+                boundary_evicted = True
+                if not active:
+                    return None
+                pads = self._bucket_actions(acts)
+                Tpad = pads[3]
+        C0 = {s: len(self.streams[s]["committed"]) - 1 for s in active}
+        rng_state, D0 = None, None
+        if self.pipeline:
+            rng_state = {s: self.streams[s]["rng"].bit_generator.state for s in active}
+            # the draft rewind is logical: this step's only persisted draft
+            # mutation is the append-only delta ingest
+            D0 = {s: len(self.streams[s]["committed"]) - len(self.streams[s]["draft_delta"])
+                  for s in active}
+        q0, hq = self._ingest_deltas(active)
+        trees = self._draft_trees(active, acts, q0, pads)
+        roffs = None
+        if self._ragged_ok:
+            offs, Npad = self._ragged_layout(active, trees)
+            # auto goes ragged only on a strict lane win
+            if self.ragged == "always" or Npad < self.n_slots * Tpad:
+                roffs = (offs, Npad)
+        if roffs is not None:
+            p_dev, hid_dev = self._target_tree_dispatch_ragged(active, trees, roffs)
+        else:
+            p_dev, hid_dev = self._target_tree_dispatch(active, trees, Tpad)
+        return PendingStep(active=active, acts=acts, pads=pads, trees=trees, hq=hq, C0=C0,
+                           p_dev=p_dev, hid_dev=hid_dev, rng_state=rng_state, D0=D0, roffs=roffs,
+                           boundary_evicted=boundary_evicted)
+
+    def verify_step(self, pending: PendingStep) -> VerifiedStep:
+        """The VERIFY phase: wait for the tree pass's distributions and run
+        every stream's host-side accept/reject walk.  Consumes per-stream rng;
+        touches no pool or scheduling state."""
+        p_all = pending.p_dev.numpy()
+        accepted, corr, node_paths = {}, {}, {}
+        for s in pending.active:
+            tree = pending.trees[s]
+            if pending.roffs is not None:
+                o, n = pending.roffs[0][s]
+                tree.p = to_verifier_dtype(p_all[o:o + n])
+            else:
+                tree.p = to_verifier_dtype(p_all[s, : tree.n_nodes])
+            acc, c = verify_tree(tree, self.ecfg.verifier, self.streams[s]["rng"])
+            accepted[s], corr[s] = acc, int(c)
+            node_paths[s] = SpeculativeEngine._accepted_nodes(tree, acc)
+        return VerifiedStep(pending, accepted, corr, node_paths=node_paths)
+
+    def commit_step(self, v: VerifiedStep) -> None:
+        """The COMMIT phase: ONE fused commit.  Runs before ``retire_step``
+        extends ``committed`` (the commit indices are pre-block)."""
+        self._commit_tree_batch(v.pending.active, v.node_paths, v.pending.pads[3])
+
+    def _read_hidden(self, v: VerifiedStep) -> None:
+        """Publish each stream's last accepted hidden state; departed rows
+        (evicted at a begun-ahead boundary) are skipped."""
+        pending = v.pending
+        hid_all = pending.hid_dev.numpy()
+        for s in pending.active:
+            if s not in self.streams:
+                continue
+            path = v.node_paths[s]
+            idx = path[-1] if path else 0
+            if pending.roffs is not None:
+                self.streams[s]["h_prev_p"] = hid_all[pending.roffs[0][s][0] + idx]
+            else:
+                self.streams[s]["h_prev_p"] = hid_all[s, idx]
+
+    def retire_step(self, v: VerifiedStep, pipeline_ahead: bool | None = None) -> list[dict]:
+        """The RETIRE phase: token bookkeeping, release of finished streams,
+        the pipeline-ahead decision (begin the next step), then the
+        hidden-state readback, deferred past that dispatch when no selector
+        reads it at the boundary."""
+        pending = v.pending
+        retire = [(s, self._advance_stream(s, pending.trees[s], v.accepted[s], v.corr[s], pending.hq[s],
+                                           v.node_paths[s]))
+                  for s in pending.active]
+        if pipeline_ahead is None:
+            pipeline_ahead = self.pipeline
+        defer_hid = pipeline_ahead and self.selector is None
+        if not defer_hid:
+            self._read_hidden(v)
+        for s, ev in retire:
+            if ev["done"]:
+                self._finish(s)
+        if pipeline_ahead:
+            if self._pending_next is not None:
+                raise RuntimeError("a begun-ahead step is already pending")
+            self.counters["pipeline_iterations"] += 1
+            self._pending_next = self.begin_step()
+            if self._pending_next is not None:
+                self.counters["pipeline_ahead"] += 1
+            else:
+                self.counters["pipeline_stalls"] += 1
+        if defer_hid:
+            self._read_hidden(v)
+        return [ev for _, ev in retire]
+
+    def finish_step(self, pending: PendingStep, pipeline_ahead: bool | None = None) -> list[dict]:
+        """Verify + commit + retire a dispatched step."""
+        v = self.verify_step(pending)
+        self.commit_step(v)
+        return self.retire_step(v, pipeline_ahead)
+
+    def step(self) -> list[dict]:
+        """Admit queued requests, advance every active stream one speculative
+        block, and return per-request progress events (in pipelined mode,
+        first the step begun ahead, and any events a ``submit`` retired)."""
+        events, self._drained_events = self._drained_events, []
+        pending, self._pending_next = self._pending_next, None
+        if pending is None:
+            pending = self.begin_step()
+        if pending is None:
+            return events
+        return events + self.finish_step(pending)
+
+    def drain_pipeline(self) -> list[dict]:
+        """Finish the begun-ahead step without beginning another."""
+        pending, self._pending_next = self._pending_next, None
+        if pending is None:
+            return []
+        return self.finish_step(pending, pipeline_ahead=False)
+
+    def abort_step(self, pending: PendingStep) -> None:
+        """Rewind a begun step as if it never dispatched (pipelined mode):
+        restore the streams' rng snapshots, erase the draft ingest
+        (pos >= D0) and the target's speculative tree lanes (pos >= C0).
+        Boundary decisions (admissions, evictions, block mappings) and work
+        counters stand."""
+        if pending.rng_state is None:
+            raise ValueError("abort_step needs the rng snapshots only pipelined begin_step records")
+        if pending is self._pending_next:
+            self._pending_next = None
+        for s, state in pending.rng_state.items():
+            if s in self.streams:
+                self.streams[s]["rng"].bit_generator.state = state
+        live = [s for s in pending.active if s in self.streams]
+        self.dpool.invalidate_from({s: pending.D0[s] for s in live})
+        self.tpool.invalidate_from({s: pending.C0[s] for s in live})
+
+    def abort_pipeline(self) -> int:
+        """Rewind the begun-ahead step, if any; returns how many (0 or 1)."""
+        pending, self._pending_next = self._pending_next, None
+        if pending is None:
+            return 0
+        self.abort_step(pending)
+        return 1
+
+    def _advance_stream(self, slot, tree, accepted, corr, h_q, node_path):
+        """Token bookkeeping shared with SpeculativeEngine.step.  Marks the
+        stream done at ``max_new`` without releasing its row."""
+        st = self.streams[slot]
+        st["p_prev"] = tree.p[node_path[-1]] if accepted else tree.p[0]
+        st["q_prev"] = tree.q[node_path[-1]] if accepted else tree.q[0]
+        new_tokens = list(accepted) + [corr]
+        st["committed"].extend(new_tokens)
+        st["pending"] = corr
+        st["draft_delta"] = new_tokens
+        st["h_prev_q"] = h_q
+        st["out"].extend(new_tokens)
+        self.counters["accepted"] += len(accepted)
+        self.counters["blocks"] += 1
+        ev = {"rid": st["rid"], "new_tokens": new_tokens, "done": len(st["out"]) >= st["max_new"]}
+        if ev["done"]:
+            st["done"] = True
+        return ev
+
+    # ----------------------------------------------------------------- run ---
+
+    def run(self) -> dict[int, dict]:
+        """Step until every submitted request finished; returns
+        ``{rid: {"tokens", "reason"}}`` for the requests this call completed
+        and removes them from the engine."""
+        done: dict[int, dict] = {}
+
+        def drain():
+            while self.finished:
+                rid, info = self.finished.popitem()
+                done[rid] = info
+
+        drain()
+        while self.queue or self.streams:
+            before = len(done)
+            self.step()
+            drain()
+            if not self.streams and not self.queue:
+                break
+            if not (self.streams or len(done) > before):
+                raise RuntimeError("scheduler stalled")
+        return done
+
+    def generate_batch(self, prompts, max_new: int = 32, seeds=None) -> list[list[int]]:
+        """Submit all prompts, drain, return outputs in order."""
+        rids = [self.submit(p, max_new, None if seeds is None else seeds[i]) for i, p in enumerate(prompts)]
+        out = self.run()
+        return [out[r]["tokens"] for r in rids]

@@ -30,6 +30,9 @@ def cuda():
 @pytest.mark.parametrize("B,T,H,Hkv,S,D,Bm", [
     (1, 7, 32, 8, 1024, 128, 1),   # target tree pass
     (2, 1, 16, 4, 1024, 128, 1),   # draft branch step
+    (16, 1, 16, 4, 1024, 128, 16),  # batched draft branch step: 8 rows x K = 2, a mask per row
+    (1, 8, 32, 8, 1024, 128, 1),   # batched admission prefill, target
+    (1, 8, 16, 4, 1024, 128, 1),   # batched admission prefill, draft
     (3, 19, 8, 2, 1000, 64, 3),    # two query tiles, ragged key chunk, per-row mask
     (1, 16, 4, 4, 33, 128, 1),     # one full query tile, G = 1
 ])
@@ -61,3 +64,125 @@ def test_tree_attention_refuses_what_it_does_not_take(cuda):
         tree_attention(q.transpose(1, 2), k, k, mask)
     with pytest.raises(ValueError, match="dtype"):
         tree_attention(q.half(), k.half(), k.half(), mask)
+
+
+def _paged_inputs(cuda, dtype, B, T, H, Hkv, D, block, nb, nblk, seed, unmapped=0):
+    """q, a random arena, a table of distinct physical blocks (1.., block 0
+    is trash) with ``unmapped`` trailing entries of each row set to -1, and
+    a random mask with one fully masked row."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    dt = getattr(torch, dtype)
+    q = torch.randn((B, T, H, D), generator=gen, device=cuda).to(dt)
+    k = torch.randn((nblk, block, Hkv, D), generator=gen, device=cuda).to(dt)
+    v = torch.randn((nblk, block, Hkv, D), generator=gen, device=cuda).to(dt)
+    perm = torch.randperm(nblk - 1, generator=gen, device=cuda)[: B * nb] + 1
+    tbl = perm.reshape(B, nb).to(torch.int32)
+    if unmapped:
+        tbl[:, nb - unmapped:] = -1
+    mask = torch.rand((B, T, nb * block), generator=gen, device=cuda) < 0.1
+    mask[0, T - 1] = False
+    return q, k, v, tbl, mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,T,H,Hkv,D,block,nb,unmapped", [
+    (8, 7, 32, 8, 128, 64, 16, 0),   # padded target tree pass
+    (8, 1, 16, 4, 128, 64, 16, 3),   # draft trunk step, unmapped tail blocks
+    (3, 5, 8, 2, 64, 16, 5, 2),      # small blocks, ragged chunk edges
+])
+def test_paged_tree_attention_matches_plain_version(cuda, dtype, B, T, H, Hkv, D, block, nb, unmapped):
+    from repro_torch.kernels.ops import gqa_paged_tree_attention
+    from repro_torch.kernels.paged_tree_attention import paged_tree_attention
+    from repro_torch.kernels.ref import paged_tree_attention_ref
+
+    q, k, v, tbl, mask = _paged_inputs(cuda, dtype, B, T, H, Hkv, D, block, nb, B * nb + 4,
+                                       seed=B * 100 + T, unmapped=unmapped)
+    before = paged_tree_attention.launches
+    out = gqa_paged_tree_attention(q, k, v, tbl, mask)
+    torch.cuda.synchronize()
+    assert paged_tree_attention.launches == before + 1
+    assert out.dtype == q.dtype and torch.isfinite(out).all()
+    err = (out.float() - paged_tree_attention_ref(q, k, v, tbl, mask).float()).abs().max().item()
+    assert err <= TOLERANCE[dtype], err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("owners", [[0, 0, 0, 2, 2, 1, 1, 1, 1, 0], list(range(8)) * 8,
+                                    [2, 2, 2, 0, 0, 0, 0, -1, -1]])  # padding lanes: zeros
+def test_ragged_paged_tree_attention_matches_plain_version(cuda, dtype, owners):
+    from repro_torch.kernels.ops import gqa_ragged_tree_attention
+    from repro_torch.kernels.paged_tree_attention import ragged_paged_tree_attention
+    from repro_torch.kernels.ref import ragged_tree_attention_ref
+
+    B, N, nb, block = max(owners) + 1, len(owners), 16, 64
+    gen = torch.Generator(device=cuda).manual_seed(N)
+    dt = getattr(torch, dtype)
+    q = torch.randn((N, 32, 128), generator=gen, device=cuda).to(dt)
+    k, v = (torch.randn((B * nb + 1, block, 8, 128), generator=gen, device=cuda).to(dt) for _ in range(2))
+    tbl = (torch.randperm(B * nb, generator=gen, device=cuda) + 1).reshape(B, nb).to(torch.int32)
+    tbl[:, nb - 2:] = -1  # unmapped tail blocks read the trash block
+    owner = torch.tensor(owners, dtype=torch.int32, device=cuda)
+    mask = torch.rand((N, nb * block), generator=gen, device=cuda) < 0.05
+    mask[max(i for i, o in enumerate(owners) if o >= 0)] = False  # fully masked: the mean of V
+    before = ragged_paged_tree_attention.launches
+    out = gqa_ragged_tree_attention(q, k, v, tbl, owner, mask)
+    torch.cuda.synchronize()
+    assert ragged_paged_tree_attention.launches == before + 1
+    assert torch.isfinite(out).all() and not out[owner < 0].any()
+    err = (out.float() - ragged_tree_attention_ref(q, k, v, tbl, owner, mask).float()).abs().max().item()
+    assert err <= TOLERANCE[dtype], err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_commit_kv_chain_hazard_matches_plain_version(cuda, dtype):
+    """Entry j's source is entry j+1's destination (the accepted path
+    [2, 3, 4] moves C+2 -> C+1, C+3 -> C+2, C+4 -> C+3) and several rows
+    pad with identity copies of one shared trash lane: the kernel must equal
+    gather-then-scatter exactly."""
+    from repro_torch.kernels.commit_kv import commit_kv
+    from repro_torch.kernels.ops import pool_commit_kv
+    from repro_torch.kernels.ref import commit_kv_ref
+
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    dt = getattr(torch, dtype)
+    k = torch.randn((36, 1, 17 * 64, 8, 128), generator=gen, device=cuda).to(dt)
+    v = torch.randn_like(k)
+    src = torch.zeros((1, 32), dtype=torch.int32, device=cuda)
+    dst = torch.zeros_like(src)
+    for row in range(8):  # 8 rows x P = 4 entries, flattened row-major as the paged commit does
+        base = (row + 1) * 64 + 10
+        e = row * 4
+        if row < 5:
+            src[0, e:e + 3] = torch.tensor([base + 2, base + 3, base + 4])
+            dst[0, e:e + 3] = torch.tensor([base + 1, base + 2, base + 3])
+            src[0, e + 3] = dst[0, e + 3] = base  # padding: the root's identity copy
+        else:
+            src[0, e:e + 4] = dst[0, e:e + 4] = 7  # idle rows: one shared trash lane
+    want_k, want_v = commit_kv_ref(k.clone(), v.clone(), src, dst)
+    before = commit_kv.launches
+    got_k, got_v = pool_commit_kv(k, v, src, dst)
+    torch.cuda.synchronize()
+    assert commit_kv.launches == before + 1
+    assert got_k.data_ptr() == k.data_ptr()  # in place
+    assert torch.equal(got_k, want_k) and torch.equal(got_v, want_v)
+
+
+@pytest.mark.cuda
+def test_commit_kv_moves_nothing_for_identity_or_out_of_range_entries(cuda):
+    """The contract the kernel shares with its plain version: entries with
+    src == dst or an index outside [0, Smax) move nothing."""
+    from repro_torch.kernels.commit_kv import commit_kv
+    from repro_torch.kernels.ref import commit_kv_ref
+
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    k = torch.randn((3, 2, 12, 2, 8), generator=gen, device=cuda)
+    v = torch.randn_like(k)
+    src = torch.tensor([[3, 4, 12, -1, 6], [2, 2, 5, 9, 1]], dtype=torch.int32, device=cuda)
+    dst = torch.tensor([[2, 3, 7, 8, 6], [1, -1, 40, 9, 0]], dtype=torch.int32, device=cuda)
+    want_k, want_v = commit_kv_ref(k.clone(), v.clone(), src, dst)
+    got_k, got_v = commit_kv(k, v, src, dst)
+    torch.cuda.synchronize()
+    assert torch.equal(got_k, want_k) and torch.equal(got_v, want_v)

@@ -7,7 +7,8 @@
     same rng;
   * the import rule: nothing under src/repro_torch/ nor chip_smoke.py
     imports ``jax`` or ``repro``;
-  * the device rule: the serving CLI defaults to cuda and raises without it.
+  * the device rule: the serving CLI defaults to cuda and raises without it;
+  * the CLI serves ``--streams`` through the batched engine on the CPU.
 """
 import ast
 import dataclasses
@@ -134,9 +135,14 @@ def test_cli_defaults_to_cuda_and_raises_without_it():
         tserve.main(["--arch", "granite-8b", "--smoke"])
 
 
-def test_cli_streams_not_ported():
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        tserve.main(["--arch", "granite-8b", "--smoke", "--device", "cpu", "--streams", "2"])
+def test_cli_streams_serves_end_to_end(capsys):
+    tserve.main(["--arch", "granite-8b", "--smoke", "--device", "cpu", "--streams", "2", "--requests", "3",
+                 "--max-new", "6"])
+    out = capsys.readouterr().out
+    assert all(f"req{r}: [" in out for r in range(3))
+    assert "[batched x2]" in out and "paged(block=64" in out and "pipelined(" in out
+    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+        tserve.main(["--arch", "granite-8b", "--smoke", "--device", "cpu", "--streams", "2", "--data-shards", "2"])
 
 
 def test_cli_cpu_smoke_runs_end_to_end(capsys):
