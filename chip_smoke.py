@@ -14,7 +14,16 @@
    never calls it), else the composition of PyTorch calls that does
    (``composed_ms``, e.g. the block-table gather then SDPA), with CUDA
    events, a cold L2 before every launch, median of several launches; and
-   the least time the card could take for the same work (bound_ms).
+   the least time the card could take for the same work (bound_ms).  The
+   tree kernels run at the granite pair's heads and at the MoE pair's (H 64,
+   Hkv 4 and H 32, Hkv 2), and commit_kv on the arenas of both pairs.  The
+   flash-decode kernels, which no engine calls
+   (nor does one in the JAX package), run dense at decode_32k's seq (B 16,
+   S 32768; window 0 and 8192; lengths >= 1, with SDPA beside them, or with
+   a row at length 0), alone at B 128 against SDPA, and paged on phase 4's
+   arena and on rows of 512 blocks; their outputs are averages over up to
+   32768 slots (~0.02-0.06), so each batch row is held to TOLERANCE times
+   its own largest |output| (DECODE_TOLERANCE_RULE).
 3. The main path at full width: granite-8b (36 layers, bf16) with its
    make_draft_cfg draft, random weights drawn on the card from seeded
    generators, served by SpeculativeEngine with specinfer at
@@ -36,7 +45,15 @@
    many streams match the single-stream engine, a profile of a few steps,
    and a float32 check of one paged, one ragged and one commit pass of the
    full-width draft on the card against the CPU.
-5. Prints the kernels' JSON line, then the card's line, then as the last
+5. The MoE path at full width: qwen3-moe-235b-a22b with n_layers cut from
+   94 to 8 (the whole model is 437.9 GiB in bf16) and make_draft_cfg of the
+   full config (23 layers, 64 experts top-8), random weights drawn on the
+   card after the granite models are freed: one specinfer (2, 2, 2) request
+   of 32 tokens through SpeculativeEngine, then the batched run of phase 4
+   (pipelined, then synchronous), launch counts exact, pipelined tokens
+   equal to synchronous ones, peak memory, a profile; then the MoE draft cut
+   to 2 layers in float32 on the card against the CPU (phase 4b's passes).
+6. Prints the kernels' JSON line, then the card's line, then as the last
    line {"ok": true, "device": {...}}.  With ``--json-dir DIR`` it also
    writes the per-shape kernel table and a summary there as JSON.
 
@@ -59,8 +76,12 @@ SRC = ROOT / "src"
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 TOLERANCE = {"float32": 1e-4, "bfloat16": 2e-2}  # bf16: output rounding dominates
+# The flash-decode outputs are means over up to 32768 slots of N(0, 1) values,
+# ~0.02-0.06 at most, so an absolute 2e-2 would pass zeros.  One bf16 rounding
+# of each side differs by at most one ulp, <= 2**-7 of the row's largest |value|.
+DECODE_TOLERANCE_RULE = "max|out - ref| of each batch row <= TOLERANCE x max|ref| of that row"
 REPS = 25
-KERNEL_SOURCES = ["tree_attention", "paged_tree_attention", "commit_kv"]
+KERNEL_SOURCES = ["tree_attention", "paged_tree_attention", "commit_kv", "decode_attention"]
 
 
 def log(*args):
@@ -161,9 +182,10 @@ def phase_environment(torch):
     return smi
 
 
-def _case_inputs(torch, name, dtype, gen):
+def _case_inputs(torch, name, dtype, gen, heads=None):
     """(q, k, v, mask) at one of the main path's shapes, with masks made by
-    the port's own cache functions and unwritten ring lanes left at zero."""
+    the port's own cache functions and unwritten ring lanes left at zero.
+    ``heads`` = (H, Hkv) replaces the granite pair's heads (the MoE pair's)."""
     import numpy as np
 
     from repro_torch.core.trees import tree_ancestor_mask
@@ -171,6 +193,9 @@ def _case_inputs(torch, name, dtype, gen):
 
     S = 1024
     dev = "cuda"
+
+    def hk(H, Hkv):
+        return heads or (H, Hkv)
 
     def ring(B, Hkv, filled):
         k = torch.zeros(B, S, Hkv, 128, device=dev)
@@ -186,12 +211,12 @@ def _case_inputs(torch, name, dtype, gen):
         return pos, slots, length + torch.arange(T, dtype=torch.int32, device=dev)
 
     if name == "target prefill":  # 7 prompt tokens into an empty ring
-        B, T, H, Hkv = 1, 7, 32, 8
+        (B, T), (H, Hkv) = (1, 7), hk(32, 8)
         pos, _, qpos = pos_after(0, T)
         mask = attn_mask_from_pos(pos, qpos)[:, 0]
         k, v = ring(B, Hkv, T)
     elif name == "target tree pass":  # (2, 2, 2) tree after 40 committed tokens
-        B, T, H, Hkv = 1, 7, 32, 8
+        (B, T), (H, Hkv) = (1, 7), hk(32, 8)
         parent = [-1, 0, 1, 2, 2, 3, 4]
         anc = torch.as_tensor(tree_ancestor_mask(np.asarray(parent)), device=dev)
         depth = anc.sum(dim=-1).to(torch.int32) - 1
@@ -200,31 +225,31 @@ def _case_inputs(torch, name, dtype, gen):
         mask = tree_mask_from_pos(pos, 40 + depth, anc[None], slots)[:, 0]
         k, v = ring(B, Hkv, 40 + T)
     elif name == "draft decode":  # one token after 42
-        B, T, H, Hkv = 1, 1, 16, 4
+        (B, T), (H, Hkv) = (1, 1), hk(16, 4)
         pos, _, qpos = pos_after(42, T)
         mask = attn_mask_from_pos(pos, qpos)[:, 0]
         k, v = ring(B, Hkv, 43)
     elif name == "draft branch step":  # K = 2 forked rows share the (1, T, S) mask
-        B, T, H, Hkv = 2, 1, 16, 4
+        (B, T), (H, Hkv) = (2, 1), hk(16, 4)
         pos, _, qpos = pos_after(44, T)
         mask = attn_mask_from_pos(pos, qpos)[:, 0]
         k, v = ring(B, Hkv, 45)
     elif name.startswith("batched admission prefill"):  # 8 prompt tokens into a fresh 1-row ring
         B, T = 1, 8
-        H, Hkv = (32, 8) if name.endswith("target") else (16, 4)
+        H, Hkv = hk(*((32, 8) if name.endswith("target") else (16, 4)))
         pos = torch.full((1, S), -1, dtype=torch.int32, device=dev)
         pos[0, :T] = torch.arange(T, dtype=torch.int32, device=dev)
         mask = attn_mask_from_pos(pos, pos[:, :T])[:, 0]
         k, v = ring(B, Hkv, T)
     elif name == "batched draft branch step":  # 8 streams x K = 2 forked dense rows, a mask per row
-        B, T, H, Hkv = 16, 1, 16, 4
+        (B, T), (H, Hkv) = (16, 1), hk(16, 4)
         n = (43 + 9 * (torch.arange(B, device=dev) // 2)).to(torch.int32)  # each row's new token
         slot = torch.arange(S, dtype=torch.int32, device=dev)[None]
         pos = torch.where(slot <= n[:, None], slot, -1)
         mask = attn_mask_from_pos(pos, n[:, None])[:, 0]
         k, v = ring(B, Hkv, int(n.max()) + 1)
     else:  # random per-row mask with a fully masked row
-        B, T, H, Hkv = 2, 7, 32, 8
+        (B, T), (H, Hkv) = (2, 7), hk(32, 8)
         mask = torch.rand(B, T, S, generator=gen, device=dev) < 0.5
         mask[1, 3] = False
         k = torch.randn(B, S, Hkv, 128, generator=gen, device=dev)
@@ -236,6 +261,14 @@ def _case_inputs(torch, name, dtype, gen):
 CASES = ["target prefill", "target tree pass", "draft decode", "draft branch step",
          "random mask, fully masked row", "batched admission prefill, target",
          "batched admission prefill, draft", "batched draft branch step"]
+# the MoE pair's heads: target qwen3-moe-235b-a22b (H 64, Hkv 4), its draft (H 32, Hkv 2)
+MOE_HEADS = {"target": (64, 4), "draft": (32, 2)}
+MOE_CASES = ["target prefill", "target tree pass", "batched admission prefill, target", "draft decode",
+             "batched draft branch step"]
+
+
+def _moe_heads(case):
+    return MOE_HEADS["target" if "target" in case else "draft"]
 
 
 def phase_kernels(torch):
@@ -250,8 +283,10 @@ def phase_kernels(torch):
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).replace("torch.", "")
-        for case in CASES:
-            q, k, v, mask = _case_inputs(torch, case, dtype, gen)
+        for case, heads in [(c, None) for c in CASES] + [(c, _moe_heads(c)) for c in MOE_CASES]:
+            q, k, v, mask = _case_inputs(torch, case, dtype, gen, heads)
+            if heads is not None:
+                case = f"{case}, qwen3-moe heads"
             out = tree_attention(q, k, v, mask)
             torch.cuda.synchronize()
             ref = tree_attention_ref(q, k, v, mask)
@@ -274,9 +309,11 @@ def phase_kernels(torch):
                    "max_abs_err": err, "tolerance": TOLERANCE[dname], "ms": ms, "plain_ms": plain_ms,
                    "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by}
             rows.append(row)
-            log(f"  {case:30s} {dname:8s} err {err:.3e} (tol {TOLERANCE[dname]:.0e})  kernel {ms:.4f} ms  "
+            log(f"  {case:46s} {dname:8s} err {err:.3e} (tol {TOLERANCE[dname]:.0e})  kernel {ms:.4f} ms  "
                 f"plain {plain_ms:.4f} ms  sdpa {library_ms:.4f} ms  bound {bound_ms:.5f} ms ({bound_by})")
         rows += paged_kernel_rows(torch, dtype, gen, timer)
+        rows += decode_kernel_rows(torch, dtype, gen, timer)
+    rows += decode_alone_rows(torch, gen, timer)
     return rows
 
 
@@ -284,6 +321,7 @@ def phase_kernels(torch):
 
 PAGED_CASES = ["paged target tree pass", "draft ingest Dp=1", "draft ingest Dp=2", "draft trunk",
                "unmapped blocks, fully masked row"]
+MOE_PAGED_CASES = ["paged target tree pass", "draft ingest Dp=1", "draft ingest Dp=2", "draft trunk"]
 RAGGED_CASES = [3, 8]  # owners of (2, 2, 2) trees in one flat buffer
 BLOCK, NB, S_LOGICAL = 64, 16, 1024
 
@@ -307,9 +345,10 @@ def _paged_pool(torch, gen, dtype, B, Hkv, lengths, T):
     return k, v, torch.as_tensor(tbl, device="cuda"), torch.as_tensor(pos, device="cuda")
 
 
-def _paged_case_inputs(torch, name, dtype, gen):
+def _paged_case_inputs(torch, name, dtype, gen, heads=None):
     """(q, k_arena, v_arena, tbl, mask) of the padded paged pass at one of the
-    batched path's shapes, masks made by the port's own cache functions."""
+    batched path's shapes, masks made by the port's own cache functions;
+    ``heads`` = (H, Hkv) replaces the granite pair's."""
     from repro_torch.models.cache import attn_mask_from_pos, cache_slots, tree_mask_from_pos
     from repro_torch.serving.serve_step import device_ancestor_mask
 
@@ -320,6 +359,7 @@ def _paged_case_inputs(torch, name, dtype, gen):
     else:
         T = {"draft ingest Dp=1": 1, "draft ingest Dp=2": 2, "draft trunk": 1}[name]
         H, Hkv = 16, 4
+    H, Hkv = heads or (H, Hkv)
     k, v, tbl, pos = _paged_pool(torch, gen, dtype, B, Hkv, lengths, T)
     length = torch.tensor(lengths, dtype=torch.int32, device="cuda")
     slots = cache_slots(length, T, S_LOGICAL)
@@ -344,7 +384,7 @@ def _paged_case_inputs(torch, name, dtype, gen):
     return q, k, v, tbl, mask.contiguous()
 
 
-def _ragged_case_inputs(torch, owners, dtype, gen):
+def _ragged_case_inputs(torch, owners, dtype, gen, heads=(32, 8)):
     """(q, k_arena, v_arena, tbl, owner, mask) of the ragged pass: ``owners``
     (2, 2, 2) trees of 7 nodes packed back to back into Npad (a power of two)
     lanes, padding lanes as forward passes them to the kernel (owner -1)."""
@@ -355,7 +395,8 @@ def _ragged_case_inputs(torch, owners, dtype, gen):
 
     B = 8
     lengths = [40 + 9 * b for b in range(B)]
-    k, v, tbl, pos = _paged_pool(torch, gen, dtype, B, 8, lengths, 7)
+    H, Hkv = heads
+    k, v, tbl, pos = _paged_pool(torch, gen, dtype, B, Hkv, lengths, 7)
     n = 7 * owners
     npad = next_pow2(n)
     parent1, depth1 = np.array([-1, 0, 1, 2, 2, 3, 4]), np.array([0, 1, 2, 3, 3, 4, 4])
@@ -376,22 +417,27 @@ def _ragged_case_inputs(torch, owners, dtype, gen):
     real = local_t >= 0
     pos[owner_t.long()[real], slots.long()[real]] = q_pos[real]
     mask = ragged_tree_mask(pos, q_pos, owner_t, slots, parent_t)
-    q = torch.randn(npad, 32, 128, generator=gen, device="cuda").to(dtype)
+    q = torch.randn(npad, H, 128, generator=gen, device="cuda").to(dtype)
     return q, k, v, tbl, torch.where(real, owner_t, -1), mask.contiguous()
 
 
-def _commit_case_inputs(torch, dtype, gen):
-    """The fused commit of the 36-layer target arena (8 rows x 16 blocks of
-    64 slots, 8 KV heads of 128): 8 rows x P = 4 entries translated through
-    the tables, as make_pool_commit_step stages them.  Rows 0-4 accept the
+# (case, layers, KV heads) of the arenas the commits of phases 4 and 5 move
+COMMIT_ARENAS = [("36-layer arena", 36, 8), ("qwen3-moe target arena, 8 layers, Hkv 4", 8, 4),
+                 ("qwen3-moe draft arena, 23 layers, Hkv 2", 23, 2)]
+
+
+def _commit_case_inputs(torch, dtype, gen, L, Hkv):
+    """The fused commit of an L-layer arena (8 rows x 16 blocks of 64 slots,
+    Hkv KV heads of 128): 8 rows x P = 4 entries translated through the
+    tables, as make_pool_commit_step stages them.  Rows 0-4 accept the
     chain [2, 3, 4] (entry j's source is entry j+1's destination) and pad
     with the root's identity copy; rows 5-7 are idle, their tables unmapped,
     so 12 entries are identity copies of one trash lane."""
     from repro_torch.models.cache import paged_phys_slots
 
-    B, P, L = 8, 4, 36
-    k = torch.randn(L, B * NB + 1, BLOCK, 8, 128, generator=gen, device="cuda").to(dtype)
-    v = torch.randn(L, B * NB + 1, BLOCK, 8, 128, generator=gen, device="cuda").to(dtype)
+    B, P = 8, 4
+    k = torch.randn(L, B * NB + 1, BLOCK, Hkv, 128, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(L, B * NB + 1, BLOCK, Hkv, 128, generator=gen, device="cuda").to(dtype)
     tbl = (torch.randperm(B * NB, generator=gen, device="cuda") + 1).reshape(B, NB).to(torch.int32)
     tbl[5:] = -1
     C = torch.tensor([40 + 9 * b if b < 5 else 0 for b in range(B)], device="cuda")
@@ -402,8 +448,8 @@ def _commit_case_inputs(torch, dtype, gen):
     dst = torch.where(valid, C[:, None] + 1 + j, C[:, None])
     srcf = paged_phys_slots(tbl, src, BLOCK).reshape(1, -1).to(torch.int32)
     dstf = paged_phys_slots(tbl, dst, BLOCK).reshape(1, -1).to(torch.int32)
-    kf = k.view(L, 1, -1, 8, 128)
-    vf = v.view(L, 1, -1, 8, 128)
+    kf = k.view(L, 1, -1, Hkv, 128)
+    vf = v.view(L, 1, -1, Hkv, 128)
     return kf, vf, srcf, dstf
 
 
@@ -413,6 +459,40 @@ def _check(torch, kernel, case, dname, out, ref):
         raise RuntimeError(f"{kernel} disagrees with its plain version: {case} {dname} "
                            f"max abs err {err} > {TOLERANCE[dname]} (or not finite)")
     return err
+
+
+def _row_errs(out, ref):
+    """(max|out - ref|, max|ref|) of each batch row."""
+    return ((out.float() - ref.float()).abs().flatten(1).amax(dim=1), ref.float().abs().flatten(1).amax(dim=1))
+
+
+def _check_decode(torch, kernel, case, dname, out, ref):
+    """Hold a flash-decode output to DECODE_TOLERANCE_RULE; returns (max abs
+    err, max over rows of the row's err / its largest |ref|)."""
+    diff, scale = _row_errs(out, ref)
+    rel = (diff / scale).max().item()
+    if not torch.isfinite(out).all() or not bool((diff <= TOLERANCE[dname] * scale).all()):
+        raise RuntimeError(f"{kernel} disagrees with its plain version: {case} {dname} max err / max|ref| "
+                           f"of a row {rel} > {TOLERANCE[dname]} (or not finite)")
+    return diff.max().item(), rel
+
+
+def _dropped_split_control(torch, q, k, v, lengths, want, dname, split=512):
+    """The check's sensitivity: the plain version with the first ``split``
+    valid slots of every row left out, as a kernel that lost one split of
+    that size would give.  Returns the smallest err / max|ref| over the rows
+    that keep slots; it must exceed TOLERANCE, or the check could not see
+    such a fault."""
+    from repro_torch.kernels.ref import tree_attention_ref
+
+    slot = torch.arange(k.shape[1], device=q.device)[None, :]
+    ln = lengths.long()[:, None]
+    kept = (slot >= split) & (slot < ln)
+    diff, scale = _row_errs(tree_attention_ref(q, k, v, kept[:, None, :]), want)
+    rel = (diff / scale)[lengths > split].min().item()
+    if not rel > TOLERANCE[dname]:
+        raise RuntimeError(f"the decode check cannot see a dropped {split}-slot split ({dname}): {rel}")
+    return rel
 
 
 def paged_kernel_rows(torch, dtype, gen, timer):
@@ -436,11 +516,13 @@ def paged_kernel_rows(torch, dtype, gen, timer):
                      "tolerance": TOLERANCE[dname], "ms": ms, "plain_ms": plain_ms, "library_ms": None,
                      "composed_ms": composed_ms, "composed_of": composed, "bound_ms": bound[0],
                      "bound_by": bound[1]})
-        log(f"  {kernel} {case:34s} {dname:8s} err {err:.3e}  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+        log(f"  {kernel} {case:50s} {dname:8s} err {err:.3e}  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
             f"{composed} {composed_ms:.4f} ms  bound {bound[0]:.5f} ms ({bound[1]})")
 
-    for case in PAGED_CASES:
-        q, k, v, tbl, mask = _paged_case_inputs(torch, case, dtype, gen)
+    for case, heads in [(c, None) for c in PAGED_CASES] + [(c, _moe_heads(c)) for c in MOE_PAGED_CASES]:
+        q, k, v, tbl, mask = _paged_case_inputs(torch, case, dtype, gen, heads)
+        if heads is not None:
+            case = f"{case}, qwen3-moe heads"
         out = paged_tree_attention(q, k, v, tbl, mask)
         torch.cuda.synchronize()
         err = _check(torch, "paged_tree_attention", case, dname, out, paged_tree_attention_ref(q, k, v, tbl, mask))
@@ -461,9 +543,9 @@ def paged_kernel_rows(torch, dtype, gen, timer):
                timer(lambda: paged_tree_attention_ref(q, k, v, tbl, mask)), timer(composed),
                "gather+sdpa", bound)
 
-    for owners in RAGGED_CASES:
-        case = f"ragged target pass, {owners} owners"
-        q, k, v, tbl, owner, mask = _ragged_case_inputs(torch, owners, dtype, gen)
+    for owners, heads in [(n, (32, 8)) for n in RAGGED_CASES] + [(8, MOE_HEADS["target"])]:
+        case = f"ragged target pass, {owners} owners" + ("" if heads == (32, 8) else ", qwen3-moe heads")
+        q, k, v, tbl, owner, mask = _ragged_case_inputs(torch, owners, dtype, gen, heads)
         out = ragged_paged_tree_attention(q, k, v, tbl, owner, mask)
         torch.cuda.synchronize()
         err = _check(torch, "ragged_paged_tree_attention", case, dname, out,
@@ -487,31 +569,214 @@ def paged_kernel_rows(torch, dtype, gen, timer):
                timer(lambda: ragged_tree_attention_ref(q, k, v, tbl, owner, mask)), timer(composed),
                "gather+sdpa", bound)
 
-    case = "36-layer arena, B*P = 32, chains + trash padding"
-    kf, vf, src, dst = _commit_case_inputs(torch, dtype, gen)
-    want_k, want_v = commit_kv_ref(kf.clone(), vf.clone(), src, dst)
-    got_k, got_v = commit_kv(kf, vf, src, dst)
-    torch.cuda.synchronize()
-    if not (torch.equal(got_k, want_k) and torch.equal(got_v, want_v)):
-        raise RuntimeError(f"commit_kv disagrees with its plain version ({dname}): it must be exact")
-    del want_k, want_v
-    L, E = kf.shape[0], src.numel()
-    lane_bytes = kf.shape[3] * kf.shape[4] * kf.element_size()
-    # only entries with src != dst move (each names a distinct destination); all are in range
-    M = int(torch.unique(dst[src != dst]).numel())
-    bound = _bound(2 * 2 * L * M * lane_bytes + 2 * E * 4, 0.0, dtype)
+    for arena, L, Hkv in COMMIT_ARENAS:
+        case = f"{arena}, B*P = 32, chains + trash padding"
+        kf, vf, src, dst = _commit_case_inputs(torch, dtype, gen, L, Hkv)
+        want_k, want_v = commit_kv_ref(kf.clone(), vf.clone(), src, dst)
+        got_k, got_v = commit_kv(kf, vf, src, dst)
+        torch.cuda.synchronize()
+        if not (torch.equal(got_k, want_k) and torch.equal(got_v, want_v)):
+            raise RuntimeError(f"commit_kv disagrees with its plain version: {case} {dname}: it must be exact")
+        del want_k, want_v
+        E = src.numel()
+        lane_bytes = kf.shape[3] * kf.shape[4] * kf.element_size()
+        # only entries with src != dst move (each names a distinct destination); all are in range
+        M = int(torch.unique(dst[src != dst]).numel())
+        bound = _bound(2 * 2 * L * M * lane_bytes + 2 * E * 4, 0.0, dtype)
 
-    def composed():
-        s, d = src[0].long(), dst[0].long()
-        kf.index_copy_(2, d, kf.index_select(2, s))
-        vf.index_copy_(2, d, vf.index_select(2, s))
+        def composed():
+            s, d = src[0].long(), dst[0].long()
+            kf.index_copy_(2, d, kf.index_select(2, s))
+            vf.index_copy_(2, d, vf.index_select(2, s))
 
-    record("commit_kv", case, {"L": L, "entries": E, "moves": M, "Hkv": kf.shape[3], "hd": kf.shape[4]}, 0.0,
-           timer(lambda: commit_kv(kf, vf, src, dst)), timer(lambda: commit_kv_ref(kf, vf, src, dst)),
-           timer(composed), "index_select+index_copy_", bound)
-    del kf, vf
+        record("commit_kv", case, {"L": L, "entries": E, "moves": M, "Hkv": kf.shape[3], "hd": kf.shape[4]}, 0.0,
+               timer(lambda: commit_kv(kf, vf, src, dst)), timer(lambda: commit_kv_ref(kf, vf, src, dst)),
+               timer(composed), "index_select+index_copy_", bound)
+        del kf, vf
+        torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------- the flash-decode kernels ---
+
+DECODE_S = 32768  # decode_32k's cache (src/repro/launch/shapes.py:25)
+DECODE_WINDOW = 8192  # long_500k's sliding-window variant (shapes.py:39-40)
+DECODE_HEADS = {"granite-8b heads": (32, 8), "qwen3-moe heads": (64, 4)}
+DECODE_VARIANTS = [(0, False), (DECODE_WINDOW, False), (0, True), (DECODE_WINDOW, True)]  # (window, a row at 0)
+
+
+def _decode_lengths(torch, B, S, zero_row):
+    """Mixed per-row lengths spread over [1, S], row 0 at 0 when ``zero_row``."""
+    lengths = [max(1, min(S, (S * (b + 1)) // B - 997 * (b % 3))) for b in range(B)]
+    if zero_row:
+        lengths[0] = 0
+    return torch.tensor(lengths, dtype=torch.int32, device="cuda")
+
+
+def decode_bound(torch, q, kv, lengths, S, window, extra_bytes):
+    """Least time (ms) of flash-decode, and what bounds it.  Bytes: q and out
+    once, ``extra_bytes`` (tables), the lengths, and each row's valid K and V
+    rows once per KV head (all S rows of V where a row has no valid slot:
+    its output is the mean of V).  Operations: 2*D per (query head, valid
+    key) for QK and as many for PV."""
+    B, _, H, D = q.shape
+    Hkv = kv.shape[2]
+    ln = lengths.long()
+    lo = (ln - window).clamp_min(0) if window else torch.zeros_like(ln)
+    n = (ln.clamp(max=S) - lo).clamp_min(0)
+    rows_v = torch.where(n == 0, torch.full_like(n, S), n)
+    nbytes = (2 * q.numel() * q.element_size() + extra_bytes + lengths.numel() * 4
+              + float((n + rows_v).sum()) * Hkv * D * kv.element_size())
+    ops = float((2 * D * H * (n + rows_v)).double().sum())
+    return _bound(nbytes, ops, q.dtype)
+
+
+def _sdpa_decode(q, k, v, lengths, window):
+    """One SDPA call computing flash-decode: the G query heads of a KV head
+    become G query rows of that head (q (B, 1, H, D) -> (B, Hkv, G, D)), so
+    nothing repeats K/V over heads; the validity mask (B, 1, 1, S) is built
+    from the lengths.  Computes the same function only when every length is
+    >= 1 (SDPA gives NaN for a row with no valid slot)."""
+    import torch
+    import torch.nn.functional as F
+
+    B, _, H, D = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    slot = torch.arange(S, device=q.device)[None, :]
+    ln = lengths.long()[:, None]
+    valid = slot < ln
+    if window:
+        valid = valid & (slot >= ln - window)
+    out = F.scaled_dot_product_attention(q.view(B, Hkv, H // Hkv, D), k.transpose(1, 2), v.transpose(1, 2),
+                                         attn_mask=valid[:, None, None, :])
+    return out.reshape(B, 1, H, D)
+
+
+def decode_kernel_rows(torch, dtype, gen, timer):
+    """Both flash-decode kernels against their plain versions, in one dtype:
+    dense at decode_32k's seq (B 16, S 32768) with granite-8b's and
+    qwen3-moe's heads, window 0 and 8192, lengths >= 1 (SDPA beside it) or
+    with a row at length 0; paged on phase 4's arena (64-slot blocks, 16 per
+    row, 8 rows, unmapped tails) and on 8 rows of 512 blocks (32768 slots)."""
+    from repro_torch.kernels.decode_attention import decode_attention, paged_decode_attention
+    from repro_torch.kernels.ref import decode_attention_ref, paged_decode_attention_ref, paged_gather_kv_ref
+
+    dname = str(dtype).replace("torch.", "")
+    rows = []
+
+    def record(kernel, case, shape, errs, ms, plain_ms, library_ms, composed_ms, bound):
+        err, rel = errs
+        rows.append({"kernel": kernel, "case": case, "dtype": dname, "shape": shape, "max_abs_err": err,
+                     "max_rel_err": rel, "tolerance": TOLERANCE[dname], "tolerance_rule": DECODE_TOLERANCE_RULE,
+                     "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                     "composed_ms": composed_ms, "composed_of": None if composed_ms is None else "gather+sdpa",
+                     "bound_ms": bound[0], "bound_by": bound[1]})
+        other = (f"sdpa {library_ms:.4f} ms" if library_ms is not None else
+                 f"gather+sdpa {composed_ms:.4f} ms" if composed_ms is not None else "no sdpa (a length-0 row)")
+        log(f"  {kernel} {case:58s} {dname:8s} err {err:.3e} (/max|ref| {rel:.2e})  kernel {ms:.4f} ms  "
+            f"plain {plain_ms:.4f} ms  {other}  bound {bound[0]:.5f} ms ({bound[1]})")
+
+    B, S = 16, DECODE_S
+    for heads_name, (H, Hkv) in DECODE_HEADS.items():
+        k = torch.randn(B, S, Hkv, 128, generator=gen, device="cuda").to(dtype)
+        v = torch.randn(B, S, Hkv, 128, generator=gen, device="cuda").to(dtype)
+        q = torch.randn(B, 1, H, 128, generator=gen, device="cuda").to(dtype)
+        for window, zero_row in DECODE_VARIANTS:
+            lengths = _decode_lengths(torch, B, S, zero_row)
+            case = (f"decode_32k, {heads_name}, window {window}, "
+                    + ("a row at length 0" if zero_row else "lengths >= 1"))
+            out = decode_attention(q, k, v, lengths, window=window)
+            torch.cuda.synchronize()
+            want = decode_attention_ref(q, k, v, lengths, window)
+            err = _check_decode(torch, "decode_attention", case, dname, out, want)
+            if window == 0 and not zero_row:
+                control = _dropped_split_control(torch, q, k, v, lengths, want, dname)
+                log(f"  control: one 512-slot split left out gives err / max|ref| >= {control:.3e} in every row "
+                    f"(tolerance {TOLERANCE[dname]:.0e})")
+            del want
+            if zero_row:
+                mean_v = v[0].float().mean(dim=0).repeat_interleave(H // Hkv, dim=0)
+                _check_decode(torch, "decode_attention", case + " (the mean of V)", dname, out[:1, 0], mean_v[None])
+            library_ms = None if zero_row else timer(lambda: _sdpa_decode(q, k, v, lengths, window))
+            record("decode_attention", case, {"B": B, "H": H, "Hkv": Hkv, "S": S, "D": 128, "window": window},
+                   err, timer(lambda: decode_attention(q, k, v, lengths, window=window)),
+                   timer(lambda: decode_attention_ref(q, k, v, lengths, window)), library_ms, None,
+                   decode_bound(torch, q, k, lengths, S, window, 0))
+        del k, v
+
+    paged_cases = [  # (case, heads, rows, blocks per row, lengths, window)
+        ("phase 4 arena, unmapped tails, a row at length 0", "granite-8b heads", 8, NB,
+         [0, 1, 40, 130, 500, 777, 1000, 1024], 0),
+        ("phase 4 arena, unmapped tails, lengths >= 1", "granite-8b heads", 8, NB,
+         [1, 40, 76, 130, 500, 777, 1000, 1024], 0),
+        ("phase 4 arena, unmapped tails, lengths >= 1", "qwen3-moe heads", 8, NB,
+         [1, 40, 76, 130, 500, 777, 1000, 1024], 0),
+        ("512-block rows, lengths >= 1", "granite-8b heads", 8, 512,
+         [1, 3000, 8192, 12001, 20000, 27777, 32767, 32768], 0),
+        ("512-block rows, window 8192, a row at length 0", "granite-8b heads", 8, 512,
+         [0, 3000, 8192, 12001, 20000, 27777, 32767, 32768], DECODE_WINDOW),
+    ]
+    for case, heads_name, Bp, nb, lens, window in paged_cases:
+        H, Hkv = DECODE_HEADS[heads_name]
+        nblk = Bp * nb + 1
+        k = torch.randn(nblk, BLOCK, Hkv, 128, generator=gen, device="cuda").to(dtype)
+        v = torch.randn(nblk, BLOCK, Hkv, 128, generator=gen, device="cuda").to(dtype)
+        tbl = (torch.randperm(nblk - 1, generator=gen, device="cuda") + 1).reshape(Bp, nb).to(torch.int32)
+        for b, n in enumerate(lens):
+            tbl[b, -(-n // BLOCK):] = -1  # blocks past the row's length are unmapped (the trash block)
+        lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        q = torch.randn(Bp, 1, H, 128, generator=gen, device="cuda").to(dtype)
+        case = f"{case}, {heads_name}"
+        out = paged_decode_attention(q, k, v, tbl, lengths, window=window)
+        torch.cuda.synchronize()
+        err = _check_decode(torch, "paged_decode_attention", case, dname, out,
+                            paged_decode_attention_ref(q, k, v, tbl, lengths, window))
+
+        def composed():
+            kd, vd = paged_gather_kv_ref(k, v, tbl)
+            return _sdpa_decode(q, kd, vd, lengths, window)
+
+        zero_row = min(lens) == 0
+        record("paged_decode_attention", case,
+               {"B": Bp, "H": H, "Hkv": Hkv, "D": 128, "block": BLOCK, "max_blocks": nb, "window": window},
+               err, timer(lambda: paged_decode_attention(q, k, v, tbl, lengths, window=window)),
+               timer(lambda: paged_decode_attention_ref(q, k, v, tbl, lengths, window)), None,
+               None if zero_row else timer(composed),
+               decode_bound(torch, q, k, lengths, nb * BLOCK, window, tbl.numel() * 4))
+        del k, v
     torch.cuda.empty_cache()
     return rows
+
+
+def decode_alone_rows(torch, gen, timer):
+    """Dense flash-decode alone at B 128, S 32768, granite-8b heads, bf16:
+    17.2 GB of K/V, so every byte comes from HBM.  A plain version that
+    repeats K/V over heads would need ~69 GB here, so none runs: the kernel
+    is checked against SDPA (same function: every length >= 1)."""
+    from repro_torch.kernels.decode_attention import decode_attention
+
+    log("  decode_attention alone, B 128, S 32768, granite-8b heads, bf16")
+    B, S, (H, Hkv) = 128, DECODE_S, DECODE_HEADS["granite-8b heads"]
+    k = torch.empty(B, S, Hkv, 128, device="cuda", dtype=torch.bfloat16).normal_(generator=gen)
+    v = torch.empty(B, S, Hkv, 128, device="cuda", dtype=torch.bfloat16).normal_(generator=gen)
+    q = torch.randn(B, 1, H, 128, generator=gen, device="cuda").to(torch.bfloat16)
+    lengths = (S // 2 + torch.randint(0, S // 2 + 1, (B,), generator=gen, device="cuda")).to(torch.int32)
+    case = "alone, B 128, lengths in [S/2, S], granite-8b heads, window 0"
+    out = decode_attention(q, k, v, lengths)
+    torch.cuda.synchronize()
+    err, rel = _check_decode(torch, "decode_attention", case, "bfloat16", out, _sdpa_decode(q, k, v, lengths, 0))
+    ms = timer(lambda: decode_attention(q, k, v, lengths))
+    library_ms = timer(lambda: _sdpa_decode(q, k, v, lengths, 0))
+    bound = decode_bound(torch, q, k, lengths, S, 0, 0)
+    log(f"  decode_attention {case} err vs sdpa {err:.3e} (/max|ref| {rel:.2e})  kernel {ms:.4f} ms  sdpa {library_ms:.4f} ms  "
+        f"bound {bound[0]:.5f} ms ({bound[1]}), {2 * k.numel() * 2 / 1e9:.1f} GB of K/V stored")
+    del k, v
+    torch.cuda.empty_cache()
+    return [{"kernel": "decode_attention", "case": case, "dtype": "bfloat16",
+             "shape": {"B": B, "H": H, "Hkv": Hkv, "S": S, "D": 128, "window": 0}, "max_abs_err": err,
+             "max_rel_err": rel, "max_abs_err_against": "sdpa", "tolerance": TOLERANCE["bfloat16"],
+             "tolerance_rule": DECODE_TOLERANCE_RULE, "ms": ms, "plain_ms": None,
+             "library_ms": library_ms, "composed_ms": None, "bound_ms": bound[0], "bound_by": bound[1]}]
 
 
 def _run_engine(torch, eng, prompts, max_new, n_layers):
@@ -634,19 +899,16 @@ def phase_main_path(torch):
     return results, total_launches
 
 
-def phase_reference(torch):
-    """The full-width draft in float32: the card (kernel) against the CPU
-    (plain versions), prefill then a (2, 2, 2) tree pass, same weights."""
-    log("== phase 3b: full-width draft on the card against the CPU, float32")
+def phase_reference(torch, cfg, seed, title="phase 3b: full-width draft"):
+    """A full-width model ``cfg`` in float32: the card (kernel) against the
+    CPU (plain versions), prefill then a (2, 2, 2) tree pass, same weights."""
+    log(f"== {title} on the card against the CPU, float32")
     import numpy as np
 
-    from repro_torch.configs import get_config
     from repro_torch.core.trees import tree_ancestor_mask
-    from repro_torch.launch.serve import make_draft_cfg
     from repro_torch.models.transformer import forward, init_cache, init_params
 
-    cfg = make_draft_cfg(get_config("granite-8b")).replace(dtype="float32")
-    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(2))
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(seed))
 
     def to_cpu(tree):
         return {k: to_cpu(v) if isinstance(v, dict) else v.cpu() for k, v in tree.items()}
@@ -679,13 +941,18 @@ def phase_reference(torch):
 N_REQUESTS, N_SLOTS = 12, 8
 
 
+NO_ENGINE_PATH = ("decode_attention", "paged_decode_attention")  # no engine calls them, as in JAX
+
+
 def _launch_counters():
     from repro_torch.kernels.commit_kv import commit_kv
+    from repro_torch.kernels.decode_attention import decode_attention, paged_decode_attention
     from repro_torch.kernels.paged_tree_attention import paged_tree_attention, ragged_paged_tree_attention
     from repro_torch.kernels.tree_attention import tree_attention
 
     return {"tree_attention": tree_attention, "paged_tree_attention": paged_tree_attention,
-            "ragged_paged_tree_attention": ragged_paged_tree_attention, "commit_kv": commit_kv}
+            "ragged_paged_tree_attention": ragged_paged_tree_attention, "commit_kv": commit_kv,
+            "decode_attention": decode_attention, "paged_decode_attention": paged_decode_attention}
 
 
 def _serve_batched(torch, eng, prompts, max_new, seeds, layers):
@@ -720,12 +987,13 @@ def _serve_batched(torch, eng, prompts, max_new, seeds, layers):
         "paged_tree_attention": n_drf * 3 * steps + n_tgt * c["padded_calls"],
         "ragged_paged_tree_attention": n_tgt * c["ragged_calls"],
         "commit_kv": c["commit_calls"],
+        **{name: 0 for name in NO_ENGINE_PATH},
     }
     if c["draft_calls"] != 5 * steps or c["commit_calls"] != steps:
         raise RuntimeError(f"draft calls {c['draft_calls']}, commits {c['commit_calls']} for {steps} steps "
                            "of (2, 2, 2): expected 5 and 1 per step")
     for name, want in expected.items():
-        if launches[name] == 0 or launches[name] != want:
+        if launches[name] != want or (launches[name] == 0 and name not in NO_ENGINE_PATH):
             raise RuntimeError(f"{name} launched {launches[name]} times, expected {want} (passes x layers)")
     if not (c["padded_calls"] and c["ragged_calls"]):
         raise RuntimeError(f"padded {c['padded_calls']} and ragged {c['ragged_calls']} tree passes: both must run")
@@ -861,21 +1129,18 @@ def _first_divergence(a, b):
     return next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
 
 
-def phase_batched_reference(torch):
-    """The full-width draft in float32 over a paged pool: one padded ingest,
-    one padded tree pass, the fused commit and one ragged tree pass on the
-    card (kernels) against the CPU (plain versions), same weights."""
-    log("== phase 4b: batched passes of the full-width draft on the card against the CPU, float32")
+def phase_batched_reference(torch, cfg, seed, title="phase 4b: batched passes of the full-width draft"):
+    """A full-width model ``cfg`` in float32 over a paged pool: one padded
+    ingest, one padded tree pass, the fused commit and one ragged tree pass
+    on the card (kernels) against the CPU (plain versions), same weights."""
+    log(f"== {title} on the card against the CPU, float32")
     import numpy as np
 
-    from repro_torch.configs import get_config
-    from repro_torch.launch.serve import make_draft_cfg
     from repro_torch.models.cache import gather_streams
     from repro_torch.models.transformer import init_cache, init_params
     from repro_torch.serving import serve_step as ss
 
-    cfg = make_draft_cfg(get_config("granite-8b")).replace(dtype="float32")
-    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(3))
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(seed))
 
     def to_cpu(tree):
         return {k: to_cpu(v) if isinstance(v, dict) else v.cpu() for k, v in tree.items()}
@@ -939,6 +1204,101 @@ def phase_batched_reference(torch):
     return worst
 
 
+# ------------------------------------------------------------ phase 5: MoE ---
+
+MOE_ARCH, MOE_TARGET_LAYERS = "qwen3-moe-235b-a22b", 8  # full width; depth cut from 94 to fit one card
+
+
+def moe_configs():
+    """qwen3-moe-235b-a22b at full width with n_layers cut from 94 to 8 (the
+    full model is 437.9 GiB in bf16), and make_draft_cfg of the FULL config
+    at its own depth (23 layers, d 2048, 32 heads, 2 KV heads, 64 experts
+    top-8, d_ff 768)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import make_draft_cfg
+
+    full = get_config(MOE_ARCH)
+    return full.replace(n_layers=MOE_TARGET_LAYERS), make_draft_cfg(full)
+
+
+def phase_moe(torch):
+    log(f"== phase 5: MoE path, full-width {MOE_ARCH} ({MOE_TARGET_LAYERS} of 94 layers) + draft, bf16")
+    import gc
+
+    import numpy as np
+
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving.batch_engine import BatchedSpeculativeEngine
+    from repro_torch.serving.engine import EngineConfig, SamplingParams, SpeculativeEngine
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tcfg, dcfg = moe_configs()
+    for role, c in (("target", tcfg), ("draft ", dcfg)):
+        log(f"{role} {c.name}: L={c.n_layers} d={c.d_model} H={c.n_heads} Hkv={c.n_kv_heads} hd={c.hd} "
+            f"E={c.n_experts} top_k={c.top_k} ff={c.d_ff} V={c.vocab} ({c.param_count() / 1e9:.2f} B params, "
+            f"{c.param_count() * 2 / 2**30:.1f} GiB bf16)")
+    t0 = time.perf_counter()
+    tp = init_params(tcfg, torch.Generator(device="cuda").manual_seed(0))
+    dp = init_params(dcfg, torch.Generator(device="cuda").manual_seed(1))
+    torch.cuda.synchronize()
+    log(f"weights drawn on the card in {time.perf_counter() - t0:.2f} s; "
+        f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated")
+    layers = (tcfg.n_layers, dcfg.n_layers)
+    rng = np.random.default_rng(5)
+    sampling = SamplingParams(1.0, 1.0)
+    results = {"target": {"n_layers": tcfg.n_layers, "params": tcfg.param_count()},
+               "draft": {"n_layers": dcfg.n_layers, "params": dcfg.param_count()}}
+
+    # single stream: one specinfer (2, 2, 2) request of 32 new tokens
+    prompt = rng.integers(0, tcfg.vocab, size=8).tolist()
+    SpeculativeEngine(tcfg, tp, dcfg, dp, EngineConfig("specinfer", 2, 2, 2, 1024, seed=9), sampling).generate(
+        prompt, max_new=8)  # cuBLAS and allocator warm-up, not measured
+    eng = SpeculativeEngine(tcfg, tp, dcfg, dp, EngineConfig("specinfer", 2, 2, 2, 1024, seed=0), sampling)
+    outs, wall, launches, be = _run_engine(torch, eng, [prompt], 32, layers)
+    c = eng.counters
+    log(f"  single stream specinfer (2,2,2): {outs[0]}")
+    log(f"  block_efficiency={be:.4f} blocks={c['blocks']} target_calls={c['target_calls']} "
+        f"draft_calls={c['draft_calls']} wall={wall:.4f} s tokens/s={32 / wall:.3f} tree_attention "
+        f"launches={launches} (= {layers[0]} x {1 + c['target_calls']} + {layers[1]} x {1 + c['draft_calls']})")
+    results["single"] = {"block_efficiency": be, "wall_s": wall, "tokens_per_s": 32 / wall, "launches": launches,
+                         "steps": c["blocks"]}
+
+    # batched: 8 rows, 12 requests, pipelined then synchronous
+    prompts = [rng.integers(0, tcfg.vocab, size=8).tolist() for _ in range(N_REQUESTS)]
+    max_new = [16 + (32 * i) // (N_REQUESTS - 1) for i in range(N_REQUESTS)]
+    seeds = [200 + i for i in range(N_REQUESTS)]
+
+    def engine(pipeline):
+        return BatchedSpeculativeEngine(tcfg, tp, dcfg, dp, EngineConfig("specinfer", 2, 2, 2, 1024), sampling,
+                                        n_slots=N_SLOTS, paged=True, block_size=64, pipeline=pipeline)
+
+    engine(True).generate_batch(prompts[:2], max_new=8, seeds=seeds[:2])  # warm-up, not measured
+    tokens = {}
+    for mode, pipeline in (("pipelined", True), ("sync", False)):
+        tokens[mode], results[mode] = _serve_batched(torch, engine(pipeline), prompts, max_new, seeds, layers)
+        r = results[mode]
+        log(f"  {mode}: {r['tokens']} tokens in {r['wall_s']:.4f} s = {r['tokens_per_s']:.3f} tok/s aggregate, "
+            f"per-stream median {r['per_stream_tokens_per_s_median']:.3f} tok/s, block_efficiency "
+            f"{r['block_efficiency']:.4f}, pad_fraction {r['pad_fraction']:.4f}, blocks_peak {r['blocks_peak']}, "
+            f"steps {r['steps']} (padded {r['padded_calls']}, ragged {r['ragged_calls']}), "
+            f"ahead {r['pipeline_ahead']} stalls {r['pipeline_stalls']}, launches {r['launches']}")
+    if tokens["pipelined"] != tokens["sync"]:
+        bad = [i for i, (a, b) in enumerate(zip(tokens["pipelined"], tokens["sync"])) if a != b]
+        raise RuntimeError(f"MoE: pipelined tokens differ from synchronous tokens for requests {bad}")
+    peak = torch.cuda.max_memory_allocated()
+    total = torch.cuda.get_device_properties(0).total_memory
+    log(f"  pipelined tokens == sync tokens for all {N_REQUESTS} requests; max_memory_allocated "
+        f"{peak / 2**30:.3f} GiB of {total / 2**30:.3f} GiB")
+    results["max_memory_allocated"] = peak
+    results["profile"] = _profile_batched(torch, engine(True), prompts[:N_SLOTS], seeds[:N_SLOTS], 3)
+    del tp, dp, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return results, launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--json-dir", type=Path, help="also write the result tables there as JSON")
@@ -952,41 +1312,66 @@ def main():
     sys.path.insert(0, str(SRC))
     t_start = time.perf_counter()
 
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import decode_attention, paged_decode_attention
+    from repro_torch.launch.serve import make_draft_cfg
+
     smi = phase_environment(torch)
     rows = phase_kernels(torch)
+    # no engine calls the flash-decode kernels (nor does one in the JAX package): phase 2's launches only
+    decode_launches = {"decode_attention": decode_attention.launches,
+                       "paged_decode_attention": paged_decode_attention.launches}
     main_path, launches = phase_main_path(torch)
-    ref_err = phase_reference(torch)
+    ref_err = phase_reference(torch, make_draft_cfg(get_config("granite-8b")).replace(dtype="float32"), 2)
     batched = phase_batched(torch)
-    batched_ref_err = phase_batched_reference(torch)
+    batched_ref_err = phase_batched_reference(
+        torch, make_draft_cfg(get_config("granite-8b")).replace(dtype="float32"), 3)
+    moe, moe_launches = phase_moe(torch)
+    moe_draft32 = moe_configs()[1].replace(n_layers=2, dtype="float32")
+    moe_ref_err = max(
+        phase_reference(torch, moe_draft32, 6, "phase 5b: the MoE draft cut to 2 layers"),
+        phase_batched_reference(torch, moe_draft32, 7, "phase 5c: batched passes of the MoE draft cut to 2 layers"))
 
-    # each kernel's launches over every main-path run (phase 3 and both phase 4 runs);
-    # its times at the hottest shape of its path, in bf16
-    runs = [batched["pipelined"]["launches"], batched["sync"]["launches"]]
+    # each kernel's launches over every main-path run (phases 3 and 5 single stream, both
+    # runs of phases 4 and 5); its times at the hottest shape of its path, in bf16
+    runs = [batched["pipelined"]["launches"], batched["sync"]["launches"],
+            moe["pipelined"]["launches"], moe["sync"]["launches"]]
     total = {name: sum(r[name] for r in runs) for name in runs[0]}
-    total["tree_attention"] += launches
+    total["tree_attention"] += launches + moe_launches
     headline = {"tree_attention": "target tree pass", "paged_tree_attention": "paged target tree pass",
                 "ragged_paged_tree_attention": "ragged target pass, 8 owners",
-                "commit_kv": "36-layer arena, B*P = 32, chains + trash padding"}
+                "commit_kv": "36-layer arena, B*P = 32, chains + trash padding",
+                "paged_decode_attention": "phase 4 arena, unmapped tails, lengths >= 1, granite-8b heads",
+                "decode_attention": "decode_32k, granite-8b heads, window 0, lengths >= 1"}
     replaces = {"tree_attention": "src/repro/kernels/tree_attention.py:189",
                 "paged_tree_attention": "src/repro/kernels/tree_attention.py:89",
                 "ragged_paged_tree_attention": "src/repro/kernels/tree_attention.py:134",
-                "commit_kv": "src/repro/kernels/commit_kv.py:52"}
+                "commit_kv": "src/repro/kernels/commit_kv.py:52",
+                "paged_decode_attention": "src/repro/kernels/decode_attention.py:76",
+                "decode_attention": "src/repro/kernels/decode_attention.py:119"}
     source = {"tree_attention": "tree_attention.cu", "paged_tree_attention": "paged_tree_attention.cu",
-              "ragged_paged_tree_attention": "paged_tree_attention.cu", "commit_kv": "commit_kv.cu"}
+              "ragged_paged_tree_attention": "paged_tree_attention.cu", "commit_kv": "commit_kv.cu",
+              "paged_decode_attention": "decode_attention.cu", "decode_attention": "decode_attention.cu"}
     entries = []
     for name, case in headline.items():
         row = next(r for r in rows if r["kernel"] == name and r["case"] == case and r["dtype"] == "bfloat16")
-        entries.append({
+        entry = {
             "name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{source[name]}",
             "replaces": replaces[name], "launches": total[name],
             "max_abs_err": max(r["max_abs_err"] for r in rows if r["kernel"] == name),
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], "composed_ms": row.get("composed_ms"),
             "at": f"{case}, bf16",
-        })
+        }
+        if name in decode_launches:
+            entry["phase2_launches"] = decode_launches[name]
+            entry["launches_note"] = ("no engine path calls it, as in the JAX package, whose engines send every "
+                                      "masked pass to the tree kernels; launches counts the main-path runs")
+        entries.append(entry)
     kernels = {"kernels": entries}
     summary = {"main_path": main_path, "draft_card_vs_cpu_rel_err": ref_err, "batched": batched,
-               "batched_draft_card_vs_cpu_rel_err": batched_ref_err, "nvidia_smi": smi,
+               "batched_draft_card_vs_cpu_rel_err": batched_ref_err, "moe": moe,
+               "moe_draft_card_vs_cpu_rel_err": moe_ref_err, "nvidia_smi": smi,
                "seconds": time.perf_counter() - t_start}
     if args.json_dir:
         args.json_dir.mkdir(parents=True, exist_ok=True)

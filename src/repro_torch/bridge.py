@@ -10,16 +10,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-# norm scales stay fp32 whatever the model dtype, as in the JAX package
-_FP32_LEAVES = ("ln1", "ln2", "final_ln")
+# norm scales and the MoE router stay fp32 whatever the model dtype, as in the
+# JAX package (a rounded router would change routing)
+_FP32_LEAVES = ("ln1", "ln2", "final_ln", "router")
 
 
 def params_from_jax(np_params: dict, device="cuda", dtype: torch.dtype = torch.float32) -> dict:
     """The port's parameter dict from a JAX params pytree given as numpy.
 
     Floating leaves become ``dtype`` (the model's dtype), except the norm
-    scales, which stay float32.  bfloat16 numpy arrays (ml_dtypes) are read
-    through float32."""
+    scales and the MoE router, which stay float32.  bfloat16 numpy arrays
+    (ml_dtypes) are read through float32."""
 
     def conv(name, a):
         if isinstance(a, dict):

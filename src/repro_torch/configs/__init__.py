@@ -1,8 +1,9 @@
 """Architecture config registry: ``get_config(name)`` / ``get_smoke(name)``.
 
 The counterpart of src/repro/configs/__init__.py for the families this
-package runs so far: the dense granite pair and the paper's Llama-3 70B/8B
-pair.  The other families join with the slices that port their layers.
+package runs so far: the dense granite pair, the paper's Llama-3 70B/8B
+pair and the two MoE configs (qwen3-moe flat, llama4-maverick interleaved).
+The other families join with the slices that port their layers.
 """
 from __future__ import annotations
 
@@ -11,6 +12,8 @@ import importlib
 ARCHES = {
     "granite-8b": "granite_8b",
     "granite-3-2b": "granite_3_2b",
+    "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
+    "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
     "paper-llama70b": "paper_llama70b_8b",
 }
 

@@ -5,19 +5,26 @@ version (kernels/ref.py); a CUDA tensor launches the hand-written kernel,
 which raises on anything it does not take.  There is no other fallback.
 
 Unlike the TPU wrappers, these pad nothing (T to 8, S to a block multiple,
-N to 8-row owner tiles are TPU tiling rules), replicate nothing (the
-kernels read KV head h // (H / Hkv) and broadcast a (1, T, S) mask by
-indexing) and transpose no arena (the paged kernels read the pool's native
-(NBLK, block, Hkv, D) layout through the block table).
+N to 8-row owner tiles, the decode query to 8 rows are TPU tiling rules),
+replicate nothing (the kernels read KV head h // (H / Hkv) and broadcast a
+(1, T, S) mask by indexing) and transpose no arena (the paged kernels read
+the pool's native (NBLK, block, Hkv, D) layout through the block table).
+
+The two decode entries have no engine caller, as in the JAX package (whose
+engines send every masked pass to the tree kernels): the tests and
+``chip_smoke.py`` reach them here.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.commit_kv import commit_kv
+from repro_torch.kernels.decode_attention import decode_attention, paged_decode_attention
 from repro_torch.kernels.paged_tree_attention import paged_tree_attention, ragged_paged_tree_attention
 from repro_torch.kernels.ref import (
     commit_kv_ref,
+    decode_attention_ref,
+    paged_decode_attention_ref,
     paged_tree_attention_ref,
     ragged_tree_attention_ref,
     tree_attention_ref,
@@ -75,3 +82,29 @@ def pool_commit_kv(k: torch.Tensor, v: torch.Tensor, src: torch.Tensor, dst: tor
     if k.device.type == "cpu":
         return commit_kv_ref(k, v, src, dst)
     return commit_kv(k, v, src, dst)
+
+
+def gqa_decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         lengths: torch.Tensor, *, window: int = 0) -> torch.Tensor:
+    """Flash-decode: one query token per row against a dense cache.
+
+    q (B, 1, H, D); k, v (B, S, Hkv, D); lengths (B,) int32: slot s of row b
+    is valid iff s < lengths[b] (and s >= lengths[b] - window when window >
+    0); a row with no valid slot gets the mean of V.  Returns (B, 1, H, D)."""
+    if q.device.type == "cpu":
+        return decode_attention_ref(q, k, v, lengths, window)
+    return decode_attention(q, k, v, lengths, window=window)
+
+
+def gqa_paged_decode_attention(q: torch.Tensor, k_arena: torch.Tensor, v_arena: torch.Tensor,
+                               tbl: torch.Tensor, lengths: torch.Tensor, *,
+                               window: int = 0) -> torch.Tensor:
+    """Flash-decode over one layer of a paged pool.
+
+    q (B, 1, H, D); k_arena, v_arena (NBLK, block, Hkv, D); tbl
+    (B, max_blocks) int32 (-1 = unmapped, read as the trash block); lengths
+    (B,) int32 over logical slots, validity as in ``gqa_decode_attention``.
+    Returns (B, 1, H, D)."""
+    if q.device.type == "cpu":
+        return paged_decode_attention_ref(q, k_arena, v_arena, tbl, lengths, window)
+    return paged_decode_attention(q, k_arena, v_arena, tbl, lengths, window=window)

@@ -87,3 +87,31 @@ def ragged_tree_attention_ref(q: torch.Tensor, k_arena: torch.Tensor, v_arena: t
     kd, vd = paged_gather_kv_ref(k_arena, v_arena, tbl[own.clamp_min(0)])  # (N, S, Hkv, D)
     out = tree_attention_ref(q[:, None], kd, vd, mask[:, None])[:, 0]
     return torch.where((own >= 0)[:, None, None], out, torch.zeros((), dtype=out.dtype, device=out.device))
+
+
+def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lengths: torch.Tensor,
+                         window: int = 0) -> torch.Tensor:
+    """Single-query decode attention, validity from the cache length.
+
+    q (B, 1, H, D); k, v (B, S, Hkv, D); lengths (B,) int.  Slot s of row b
+    is valid iff s < lengths[b] (and, with a window, s >= lengths[b] -
+    window); there is no mask tensor.  A row with no valid slot (length 0)
+    gets the mean of V over all S slots.  Returns (B, 1, H, D) in q's
+    dtype."""
+    S = k.shape[1]
+    slot = torch.arange(S, device=q.device)[None, :]
+    ln = lengths.long()[:, None]
+    valid = slot < ln
+    if window:
+        valid = valid & (slot >= ln - window)
+    return tree_attention_ref(q, k, v, valid[:, None, :])
+
+
+def paged_decode_attention_ref(q: torch.Tensor, k_arena: torch.Tensor, v_arena: torch.Tensor,
+                               tbl: torch.Tensor, lengths: torch.Tensor, window: int = 0) -> torch.Tensor:
+    """Decode attention over a paged arena: the block-table gather (-1 reads
+    the trash block 0), then ``decode_attention_ref``.  q (B, 1, H, D);
+    arenas (NBLK, block, Hkv, D); tbl (B, nb); lengths (B,).  Returns
+    (B, 1, H, D)."""
+    kd, vd = paged_gather_kv_ref(k_arena, v_arena, tbl)
+    return decode_attention_ref(q, kd, vd, lengths, window)

@@ -4,6 +4,8 @@
         --verifier specinfer --K 2 --L1 2 --L2 2 --requests 2 --max-new 32
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \
         --streams 8 --requests 12 --max-new 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --smoke \
+        --arch qwen3-moe-235b-a22b --streams 8
 
 The counterpart of src/repro/launch/serve.py: builds a target and a
 proportionally smaller draft of the same family with random weights drawn
@@ -33,7 +35,8 @@ from repro_torch.serving.engine import EngineConfig, SamplingParams, Speculative
 def make_draft_cfg(cfg):
     """A ~10x smaller draft of the same family (paper: ~9:1 .. 100:1).
 
-    The dense rule of src/repro/launch/serve.py ``make_draft_cfg``; the
+    The dense and MoE rules of src/repro/launch/serve.py ``make_draft_cfg``
+    (an MoE draft keeps half the experts and top_k capped at that); the
     other families' rules come with the slices that port those families."""
     kw = dict(
         name=cfg.name + "-draft",
@@ -45,6 +48,9 @@ def make_draft_cfg(cfg):
     )
     if cfg.head_dim:
         kw["head_dim"] = cfg.head_dim
+    if cfg.arch_type == "moe":
+        kw["n_experts"] = max(cfg.n_experts // 2, 2)
+        kw["top_k"] = min(cfg.top_k, max(cfg.n_experts // 2, 2))
     return cfg.replace(**kw)
 
 

@@ -1,10 +1,14 @@
-"""The dense GQA decoder stack: ``init_params``, ``forward``, ``init_cache``.
+"""The GQA decoder stacks, dense and MoE: ``init_params``, ``forward``,
+``init_cache``.
 
-The counterpart of the dense branches of src/repro/models/transformer.py.
-Parameters are plain dicts of tensors with the JAX nesting, layer-stacked on
-a leading L axis (``params["blocks"]["attn"]["wq"]`` is (L, d, H*hd)), so the
-bridge maps one to one.  Each ``lax.scan`` over layers is a Python loop over
-layer views.
+The counterpart of the dense and MoE branches of
+src/repro/models/transformer.py.  Parameters are plain dicts of tensors with
+the JAX nesting, layer-stacked on a leading axis
+(``params["blocks"]["attn"]["wq"]`` is (L, d, H*hd)), so the bridge maps one
+to one.  An interleaved MoE stack (``moe_every`` = m > 1, Llama-4 style)
+nests ``blocks.dense{i}`` (i < m - 1) and ``blocks.moe``, each stacked over
+the n_layers // m groups; layer i of group g is cache layer g*m + i.  Each
+``lax.scan`` over layers is a Python loop over layer views.
 
 Every masked attention pass goes through ``kernels.ops``, as the JAX
 ``attention_impl="pallas"`` path does: ``gqa_tree_attention`` over a ring
@@ -39,13 +43,14 @@ from repro_torch.models.layers import (
     swiglu,
     swiglu_init,
 )
+from repro_torch.models.moe import init_moe, moe_apply
 
 
-def _require_dense(cfg):
-    if cfg.arch_type != "dense":
+def _require_ported(cfg):
+    if cfg.arch_type not in ("dense", "moe"):
         raise NotImplementedError(
-            f"arch_type {cfg.arch_type!r}: this package runs the dense family so far "
-            "(ROADMAP queue 1 items 7, 9 and 10 port the others)")
+            f"arch_type {cfg.arch_type!r}: this package runs the dense and moe families so far "
+            "(ROADMAP queue 1 items 9 and 10 port the others)")
 
 
 # ----------------------------------------------------------------- params ----
@@ -74,20 +79,21 @@ def _stack_init(fn, n: int) -> dict:
     return out
 
 
-def _attn_mlp_layer_init(cfg, gen: torch.Generator) -> dict:
+def _attn_mlp_layer_init(cfg, gen: torch.Generator, moe: bool = False, d_ff: int | None = None) -> dict:
     dev = gen.device
     return {
         "ln1": torch.zeros((cfg.d_model,), dtype=torch.float32, device=dev),
         "attn": attention_weights_init(cfg, gen),
         "ln2": torch.zeros((cfg.d_model,), dtype=torch.float32, device=dev),
-        "mlp": swiglu_init(cfg, gen),
+        "mlp": init_moe(cfg, gen) if moe else swiglu_init(cfg, gen, d_ff=d_ff),
     }
 
 
 def init_params(cfg, gen: torch.Generator) -> dict:
     """Random weights drawn on ``gen.device``: normal x 0.02 for ``embed``,
-    normal x 1/sqrt(d_in) for dense layers, zero norm scales (fp32)."""
-    _require_dense(cfg)
+    normal x 1/sqrt(d_in) for dense layers and experts, zero norm scales and
+    the MoE router in fp32."""
+    _require_ported(cfg)
     dt, dev = cfg.tdtype, gen.device
     embed = torch.randn((cfg.vocab, cfg.d_model), generator=gen, device=dev, dtype=torch.float32)
     params = {
@@ -97,8 +103,37 @@ def init_params(cfg, gen: torch.Generator) -> dict:
     del embed
     if not cfg.tie_embeddings:
         params["lm_head"] = init_dense(gen, cfg.d_model, cfg.vocab, dt)
-    params["blocks"] = _stack_init(lambda: _attn_mlp_layer_init(cfg, gen), cfg.n_layers)
+    if cfg.arch_type == "moe" and cfg.moe_every > 1:
+        m = cfg.moe_every
+        if cfg.n_layers % m:
+            raise ValueError(f"n_layers {cfg.n_layers} is not a multiple of moe_every {m}")
+        dense_ff = cfg.moe_dense_ff or cfg.d_ff
+
+        def macro_init():
+            gp = {f"dense{i}": _attn_mlp_layer_init(cfg, gen, d_ff=dense_ff) for i in range(m - 1)}
+            gp["moe"] = _attn_mlp_layer_init(cfg, gen, moe=True)
+            return gp
+
+        params["blocks"] = _stack_init(macro_init, cfg.n_layers // m)
+    else:
+        moe = cfg.arch_type == "moe"
+        params["blocks"] = _stack_init(lambda: _attn_mlp_layer_init(cfg, gen, moe=moe), cfg.n_layers)
     return params
+
+
+def _layers(params: dict, cfg):
+    """(layer params, is_moe) in cache-layer order."""
+    blocks = params["blocks"]
+    if cfg.arch_type == "moe" and cfg.moe_every > 1:
+        m = cfg.moe_every
+        for g in range(cfg.n_layers // m):
+            for i in range(m - 1):
+                yield _map(lambda t: t[g], blocks[f"dense{i}"]), False
+            yield _map(lambda t: t[g], blocks["moe"]), True
+    else:
+        moe = cfg.arch_type == "moe"
+        for i in range(cfg.n_layers):
+            yield _map(lambda t: t[i], blocks), moe
 
 
 # ----------------------------------------------------------------- blocks ----
@@ -146,10 +181,14 @@ def _self_attention(p, cfg, x, positions, mask, layer_cache, ragged=None):
     return x + att.reshape(B, T, -1) @ p["attn"]["wo"]
 
 
-def _attn_mlp_block(p, cfg, x, positions, mask, layer_cache, ragged=None):
+def _attn_mlp_block(p, cfg, x, positions, mask, layer_cache, ragged=None, moe=False):
+    """Returns (x, aux): aux is the MoE layer's load-balance loss, else None."""
     x = _self_attention(p, cfg, x, positions, mask, layer_cache, ragged)
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + swiglu(p["mlp"], h)
+    if moe:
+        y, aux = moe_apply(p["mlp"], cfg, h)
+        return x + y, aux
+    return x + swiglu(p["mlp"], h), None
 
 
 # ---------------------------------------------------------------- forward ----
@@ -183,7 +222,9 @@ def _tree_depths(anc: torch.Tensor, per_stream: bool = False) -> torch.Tensor:
 def forward(params: dict, cfg, tokens: torch.Tensor, *, mode: str = "full",
             cache: dict | None = None, anc: torch.Tensor | None = None,
             lens: torch.Tensor | None = None, ragged: dict | None = None):
-    """Returns (logits fp32 (B, T, V), new_cache, {"hidden": (B, T, d)}).
+    """Returns (logits fp32 (B, T, V), new_cache, {"aux": fp32 scalar,
+    "hidden": (B, T, d)}); aux sums the MoE layers' load-balance losses (0
+    for a dense stack).
 
     mode "full":   causal pass over tokens; if ``cache`` is given it is
                    filled (prefill), else no cache is built.
@@ -208,7 +249,7 @@ def forward(params: dict, cfg, tokens: torch.Tensor, *, mode: str = "full",
     The new K/V are written into ``cache``'s k/v in place (models/cache.py);
     ``new_cache`` shares them and carries new pos/len tensors.
     """
-    _require_dense(cfg)
+    _require_ported(cfg)
     dt = cfg.tdtype
     x = params["embed"][tokens].to(dt)
     B, T, _ = x.shape
@@ -270,16 +311,17 @@ def forward(params: dict, cfg, tokens: torch.Tensor, *, mode: str = "full",
     else:
         mask = _mk_masks(cfg, "full", T, None, positions, None, None)
 
-    blocks = params["blocks"]
-    for i in range(cfg.n_layers):
-        pl = _map(lambda t: t[i], blocks)
+    aux_total = torch.zeros((), dtype=torch.float32, device=dev)
+    for i, (pl, moe) in enumerate(_layers(params, cfg)):
         layer_cache = None if cache is None else (cache["attn"]["k"][i], cache["attn"]["v"][i], slots, page_tbl)
-        x = _attn_mlp_block(pl, cfg, x, positions, mask, layer_cache, owner)
+        x, aux = _attn_mlp_block(pl, cfg, x, positions, mask, layer_cache, owner, moe)
+        if aux is not None:
+            aux_total = aux_total + aux
 
     x = rms_norm(x, params["final_ln"], cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     logits = (x @ head).float()
-    return logits, new_cache, {"hidden": x}
+    return logits, new_cache, {"aux": aux_total, "hidden": x}
 
 
 # ------------------------------------------------------------------ cache ----
@@ -292,7 +334,7 @@ def init_cache(cfg, batch: int, smax: int, device, per_stream: bool = False,
     block_size) stores the KV as a paged arena of ``pool_blocks`` usable
     blocks shared through per-row block tables, with ``smax`` each row's
     logical capacity; requires per_stream."""
-    _require_dense(cfg)
+    _require_ported(cfg)
     if page is not None and not per_stream:
         raise ValueError("paged caches are per-stream by construction")
     if page is not None:

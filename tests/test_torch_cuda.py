@@ -18,6 +18,15 @@ from repro_torch.kernels.tree_attention import tree_attention
 TOLERANCE = {"float32": 1e-4, "bfloat16": 2e-2}
 
 
+def _row_rel_err(out, want):
+    """Largest over batch rows of max|out - want| / max|want| of the row.
+    The flash-decode tests hold this to TOLERANCE: their outputs are means
+    over up to thousands of slots, far below 1, where an absolute 2e-2
+    would pass zeros."""
+    diff = (out.float() - want.float()).abs().flatten(1).amax(dim=1)
+    return (diff / want.float().abs().flatten(1).amax(dim=1)).max().item()
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -186,3 +195,127 @@ def test_commit_kv_moves_nothing_for_identity_or_out_of_range_entries(cuda):
     got_k, got_v = commit_kv(k, v, src, dst)
     torch.cuda.synchronize()
     assert torch.equal(got_k, want_k) and torch.equal(got_v, want_v)
+
+
+# ------------------------------------------- MoE head shapes (qwen3-moe-235b-a22b) ---
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,T,H,Hkv", [
+    (1, 7, 64, 4),   # target tree pass, G = 16
+    (16, 1, 32, 2),  # draft branch step, 8 rows x K = 2
+])
+def test_tree_attention_at_moe_heads(cuda, dtype, B, T, H, Hkv):
+    gen = torch.Generator(device=cuda).manual_seed(H + T)
+    dt = getattr(torch, dtype)
+    q = torch.randn((B, T, H, 128), generator=gen, device=cuda).to(dt)
+    k, v = (torch.randn((B, 1024, Hkv, 128), generator=gen, device=cuda).to(dt) for _ in range(2))
+    mask = torch.rand((B, T, 1024), generator=gen, device=cuda) < 0.05
+    mask[0, T - 1] = False
+    out = tree_attention(q, k, v, mask)
+    torch.cuda.synchronize()
+    err = (out.float() - tree_attention_ref(q, k, v, mask).float()).abs().max().item()
+    assert torch.isfinite(out).all() and err <= TOLERANCE[dtype], err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("T,H,Hkv", [(7, 64, 4), (1, 32, 2), (2, 32, 2)])
+def test_paged_and_ragged_attention_at_moe_heads(cuda, dtype, T, H, Hkv):
+    from repro_torch.kernels.paged_tree_attention import paged_tree_attention, ragged_paged_tree_attention
+    from repro_torch.kernels.ref import paged_tree_attention_ref, ragged_tree_attention_ref
+
+    q, k, v, tbl, mask = _paged_inputs(cuda, dtype, 8, T, H, Hkv, 128, 64, 16, 8 * 16 + 1, seed=H + T, unmapped=2)
+    out = paged_tree_attention(q, k, v, tbl, mask)
+    torch.cuda.synchronize()
+    err = (out.float() - paged_tree_attention_ref(q, k, v, tbl, mask).float()).abs().max().item()
+    assert torch.isfinite(out).all() and err <= TOLERANCE[dtype], err
+    owner = torch.arange(8, dtype=torch.int32, device=cuda).repeat_interleave(T)
+    owner[-1] = -1  # a padding lane
+    qn, mn = q.reshape(8 * T, H, 128), mask.reshape(8 * T, -1)
+    out = ragged_paged_tree_attention(qn, k, v, tbl, owner, mn)
+    torch.cuda.synchronize()
+    err = (out.float() - ragged_tree_attention_ref(qn, k, v, tbl, owner, mn).float()).abs().max().item()
+    assert torch.isfinite(out).all() and not out[-1].any() and err <= TOLERANCE[dtype], err
+
+
+# ------------------------------------------------------------ flash-decode ---
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window", [0, 48])
+@pytest.mark.parametrize("B,S,H,Hkv,D", [
+    (6, 1000, 32, 8, 128),   # granite heads, G = 4, S not a chunk multiple
+    (4, 4096, 64, 4, 128),   # qwen3-moe heads, G = 16
+    (3, 257, 4, 4, 64),      # G = 1
+    (3, 300, 12, 2, 64),     # G = 6 (a CTA of 8 heads, 2 idle)
+    (2, 640, 64, 2, 128),    # G = 32: two CTAs of 16 heads per KV head
+])
+def test_decode_attention_matches_plain_version(cuda, dtype, window, B, S, H, Hkv, D):
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.ops import gqa_decode_attention
+    from repro_torch.kernels.ref import decode_attention_ref
+
+    gen = torch.Generator(device=cuda).manual_seed(S + H)
+    dt = getattr(torch, dtype)
+    q = torch.randn((B, 1, H, D), generator=gen, device=cuda).to(dt)
+    k, v = (torch.randn((B, S, Hkv, D), generator=gen, device=cuda).to(dt) for _ in range(2))
+    lengths = torch.tensor(([0, 1, S, S // 3, 33, S - 5] * B)[:B], dtype=torch.int32, device=cuda)
+    before = decode_attention.launches
+    out = gqa_decode_attention(q, k, v, lengths, window=window)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before + 1
+    assert out.dtype == dt and torch.isfinite(out).all()
+    err = _row_rel_err(out, decode_attention_ref(q, k, v, lengths, window))
+    assert err <= TOLERANCE[dtype], err
+    # length 0: the mean of V over all S slots
+    mean_v = v[0].float().mean(dim=0).repeat_interleave(H // Hkv, dim=0)
+    assert _row_rel_err(out[:1, 0], mean_v[None]) <= TOLERANCE[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window", [0, 100])
+@pytest.mark.parametrize("H,Hkv,D,block", [(32, 8, 128, 64), (64, 4, 128, 64), (8, 8, 64, 16), (16, 2, 64, 32)])
+def test_paged_decode_attention_matches_plain_version(cuda, dtype, window, H, Hkv, D, block):
+    """Rows of length 0, 1, a partial block, a full row, and a row whose
+    tail blocks are unmapped (-1: the trash block)."""
+    from repro_torch.kernels.decode_attention import paged_decode_attention
+    from repro_torch.kernels.ops import gqa_paged_decode_attention
+    from repro_torch.kernels.ref import paged_decode_attention_ref
+
+    B, nb = 5, 12
+    S = nb * block
+    gen = torch.Generator(device=cuda).manual_seed(H * block + window)
+    dt = getattr(torch, dtype)
+    q = torch.randn((B, 1, H, D), generator=gen, device=cuda).to(dt)
+    k, v = (torch.randn((B * nb + 1, block, Hkv, D), generator=gen, device=cuda).to(dt) for _ in range(2))
+    tbl = (torch.randperm(B * nb, generator=gen, device=cuda) + 1).reshape(B, nb).to(torch.int32)
+    lengths = torch.tensor([0, 1, block + 5, S, 3 * block], dtype=torch.int32, device=cuda)
+    tbl[0, 1:] = -1
+    tbl[4, 3:] = -1
+    before = paged_decode_attention.launches
+    out = gqa_paged_decode_attention(q, k, v, tbl, lengths, window=window)
+    torch.cuda.synchronize()
+    assert paged_decode_attention.launches == before + 1
+    assert out.dtype == dt and torch.isfinite(out).all()
+    err = _row_rel_err(out, paged_decode_attention_ref(q, k, v, tbl, lengths, window))
+    assert err <= TOLERANCE[dtype], err
+
+
+@pytest.mark.cuda
+def test_decode_attention_refuses_what_it_does_not_take(cuda):
+    from repro_torch.kernels.decode_attention import decode_attention
+
+    q = torch.zeros(2, 1, 4, 96, device=cuda)  # head_dim 96 has no instance
+    k = torch.zeros(2, 8, 2, 96, device=cuda)
+    ln = torch.ones(2, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        decode_attention(q, k, k, ln)
+    q, k = q[..., :64].contiguous(), k[..., :64].contiguous()
+    with pytest.raises(ValueError, match="lengths"):
+        decode_attention(q, k, k, ln.long())
+    with pytest.raises(ValueError, match="on cpu"):
+        decode_attention(q.cpu(), k.cpu(), k.cpu(), ln.cpu())
