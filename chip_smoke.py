@@ -17,7 +17,12 @@
    the least time the card could take for the same work (bound_ms).  The
    tree kernels run at the granite pair's heads and at the MoE pair's (H 64,
    Hkv 4 and H 32, Hkv 2), and commit_kv on the arenas of both pairs.  The
-   flash-decode kernels, which no engine calls
+   tree kernels' long-cache rows (a 32768-slot ring, rows of 512 64-slot
+   blocks, after ~30000 committed tokens) run their split path.  Every
+   tree-kernel row is also held per query row to TOLERANCE times the row's
+   own largest |output| (TREE_TOLERANCE_RULE), and on each long row the
+   plain version with the first split's keys left out must fail that
+   check (the control).  The flash-decode kernels, which no engine calls
    (nor does one in the JAX package), run dense at decode_32k's seq (B 16,
    S 32768; window 0 and 8192; lengths >= 1, with SDPA beside them, or with
    a row at length 0), alone at B 128 against SDPA, and paged on phase 4's
@@ -80,6 +85,10 @@ TOLERANCE = {"float32": 1e-4, "bfloat16": 2e-2}  # bf16: output rounding dominat
 # ~0.02-0.06 at most, so an absolute 2e-2 would pass zeros.  One bf16 rounding
 # of each side differs by at most one ulp, <= 2**-7 of the row's largest |value|.
 DECODE_TOLERANCE_RULE = "max|out - ref| of each batch row <= TOLERANCE x max|ref| of that row"
+# The tree kernels' outputs on a long cache are means over ~30000 slots, ~0.01-0.03,
+# so each query row is also held to its own scale (a padding lane's zeros exactly).
+TREE_TOLERANCE_RULE = ("max|out - ref| <= TOLERANCE and, in each query row, "
+                       "max|out - ref| <= TOLERANCE x max|ref| of that row")
 REPS = 25
 KERNEL_SOURCES = ["tree_attention", "paged_tree_attention", "commit_kv", "decode_attention"]
 
@@ -185,13 +194,14 @@ def phase_environment(torch):
 def _case_inputs(torch, name, dtype, gen, heads=None):
     """(q, k, v, mask) at one of the main path's shapes, with masks made by
     the port's own cache functions and unwritten ring lanes left at zero.
-    ``heads`` = (H, Hkv) replaces the granite pair's heads (the MoE pair's)."""
+    ``heads`` = (H, Hkv) replaces the granite pair's heads (the MoE pair's).
+    The "long" cases take a LONG_S-slot ring (the split path)."""
     import numpy as np
 
     from repro_torch.core.trees import tree_ancestor_mask
     from repro_torch.models.cache import attn_mask_from_pos, cache_slots, tree_mask_from_pos
 
-    S = 1024
+    S = LONG_S if name.startswith("long") else 1024
     dev = "cuda"
 
     def hk(H, Hkv):
@@ -215,15 +225,16 @@ def _case_inputs(torch, name, dtype, gen, heads=None):
         pos, _, qpos = pos_after(0, T)
         mask = attn_mask_from_pos(pos, qpos)[:, 0]
         k, v = ring(B, Hkv, T)
-    elif name == "target tree pass":  # (2, 2, 2) tree after 40 committed tokens
+    elif name in ("target tree pass", "long target tree pass"):  # (2, 2, 2) tree after C committed tokens
         (B, T), (H, Hkv) = (1, 7), hk(32, 8)
+        C = LONG_COMMITTED if name.startswith("long") else 40
         parent = [-1, 0, 1, 2, 2, 3, 4]
         anc = torch.as_tensor(tree_ancestor_mask(np.asarray(parent)), device=dev)
         depth = anc.sum(dim=-1).to(torch.int32) - 1
-        pos, slots, _ = pos_after(40, T)
-        pos[slots.long()] = 40 + depth
-        mask = tree_mask_from_pos(pos, 40 + depth, anc[None], slots)[:, 0]
-        k, v = ring(B, Hkv, 40 + T)
+        pos, slots, _ = pos_after(C, T)
+        pos[slots.long()] = C + depth
+        mask = tree_mask_from_pos(pos, C + depth, anc[None], slots)[:, 0]
+        k, v = ring(B, Hkv, C + T)
     elif name == "draft decode":  # one token after 42
         (B, T), (H, Hkv) = (1, 1), hk(16, 4)
         pos, _, qpos = pos_after(42, T)
@@ -260,11 +271,14 @@ def _case_inputs(torch, name, dtype, gen, heads=None):
 
 CASES = ["target prefill", "target tree pass", "draft decode", "draft branch step",
          "random mask, fully masked row", "batched admission prefill, target",
-         "batched admission prefill, draft", "batched draft branch step"]
+         "batched admission prefill, draft", "batched draft branch step", "long target tree pass"]
 # the MoE pair's heads: target qwen3-moe-235b-a22b (H 64, Hkv 4), its draft (H 32, Hkv 2)
 MOE_HEADS = {"target": (64, 4), "draft": (32, 2)}
 MOE_CASES = ["target prefill", "target tree pass", "batched admission prefill, target", "draft decode",
-             "batched draft branch step"]
+             "batched draft branch step", "long target tree pass"]
+# The long-cache rows: a 32768-slot ring (or rows of 512 64-slot blocks) after ~30000
+# committed tokens, past the tree kernels' split threshold (4096 slots): their split path
+LONG_S, LONG_COMMITTED, LONG_NB = 32768, 30000, 512
 
 
 def _moe_heads(case):
@@ -276,7 +290,7 @@ def phase_kernels(torch):
     import torch.nn.functional as F
 
     from repro_torch.kernels.ref import tree_attention_ref
-    from repro_torch.kernels.tree_attention import tree_attention
+    from repro_torch.kernels.tree_attention import SPLIT_ABOVE, tree_attention
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     timer = ColdTimer(torch)
@@ -290,10 +304,11 @@ def phase_kernels(torch):
             out = tree_attention(q, k, v, mask)
             torch.cuda.synchronize()
             ref = tree_attention_ref(q, k, v, mask)
-            err = (out.float() - ref.float()).abs().max().item()
-            if not torch.isfinite(out).all() or err > TOLERANCE[dname]:
-                raise RuntimeError(f"tree_attention disagrees with its plain version: {case} {dname} "
-                                   f"max abs err {err} > {TOLERANCE[dname]} (or not finite)")
+            err, rel = _check_tree(torch, "tree_attention", case, dname, out, ref)
+            control = None
+            if k.shape[1] > SPLIT_ABOVE:
+                control = _dropped_tree_split_control(torch, lambda m: tree_attention_ref(q, k, v, m), mask, ref,
+                                                      dname)
             qs, ks, vs = (t.transpose(1, 2) for t in (q, k, v))
             m4 = mask[:, None]
 
@@ -306,11 +321,13 @@ def phase_kernels(torch):
             bound_ms, bound_by = attention_bound(q, k, v, mask)
             row = {"kernel": "tree_attention", "case": case, "dtype": dname, "shape": {"B": q.shape[0], "T": q.shape[1], "H": q.shape[2],
                    "Hkv": k.shape[2], "S": k.shape[1], "D": q.shape[3], "Bm": mask.shape[0]},
-                   "max_abs_err": err, "tolerance": TOLERANCE[dname], "ms": ms, "plain_ms": plain_ms,
-                   "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+                   "max_abs_err": err, "max_rel_err": rel, "tolerance": TOLERANCE[dname],
+                   "tolerance_rule": TREE_TOLERANCE_RULE, "dropped_split_control": control, "ms": ms,
+                   "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by}
             rows.append(row)
-            log(f"  {case:46s} {dname:8s} err {err:.3e} (tol {TOLERANCE[dname]:.0e})  kernel {ms:.4f} ms  "
+            log(f"  {case:46s} {dname:8s} err {err:.3e} rel {rel:.3e} (tol {TOLERANCE[dname]:.0e})  kernel {ms:.4f} ms  "
                 f"plain {plain_ms:.4f} ms  sdpa {library_ms:.4f} ms  bound {bound_ms:.5f} ms ({bound_by})")
+            _log_control(control, dname)
         rows += paged_kernel_rows(torch, dtype, gen, timer)
         rows += decode_kernel_rows(torch, dtype, gen, timer)
     rows += decode_alone_rows(torch, gen, timer)
@@ -320,24 +337,24 @@ def phase_kernels(torch):
 # ------------------------------------------------- the batched path's kernels ---
 
 PAGED_CASES = ["paged target tree pass", "draft ingest Dp=1", "draft ingest Dp=2", "draft trunk",
-               "unmapped blocks, fully masked row"]
+               "unmapped blocks, fully masked row", "long paged target tree pass"]
 MOE_PAGED_CASES = ["paged target tree pass", "draft ingest Dp=1", "draft ingest Dp=2", "draft trunk"]
-RAGGED_CASES = [3, 8]  # owners of (2, 2, 2) trees in one flat buffer
-BLOCK, NB, S_LOGICAL = 64, 16, 1024
+RAGGED_CASES = [3, 8]  # owners of (2, 2, 2) trees in one flat buffer (and 8 on LONG_NB-block rows)
+BLOCK, NB = 64, 16
 
 
-def _paged_pool(torch, gen, dtype, B, Hkv, lengths, T):
+def _paged_pool(torch, gen, dtype, B, Hkv, lengths, T, nb=NB):
     """A random arena (trash block included), tables mapping each row's
     blocks up to length + T (distinct ids), and per-row pos tables holding
     the committed positions."""
     import numpy as np
 
-    nblk = B * NB + 1
-    k = torch.randn(nblk, BLOCK, Hkv, 128, generator=gen, device="cuda").to(dtype)
-    v = torch.randn(nblk, BLOCK, Hkv, 128, generator=gen, device="cuda").to(dtype)
-    ids = (torch.randperm(nblk - 1, generator=gen, device="cuda") + 1).reshape(B, NB).cpu().numpy()
-    tbl = np.full((B, NB), -1, np.int32)
-    pos = np.full((B, S_LOGICAL), -1, np.int32)
+    nblk = B * nb + 1
+    k = torch.empty(nblk, BLOCK, Hkv, 128, device="cuda", dtype=dtype).normal_(generator=gen)
+    v = torch.empty(nblk, BLOCK, Hkv, 128, device="cuda", dtype=dtype).normal_(generator=gen)
+    ids = (torch.randperm(nblk - 1, generator=gen, device="cuda") + 1).reshape(B, nb).cpu().numpy()
+    tbl = np.full((B, nb), -1, np.int32)
+    pos = np.full((B, nb * BLOCK), -1, np.int32)
     for b, n in enumerate(lengths):
         need = -(-(n + T) // BLOCK)
         tbl[b, :need] = ids[b, :need]
@@ -353,16 +370,19 @@ def _paged_case_inputs(torch, name, dtype, gen, heads=None):
     from repro_torch.serving.serve_step import device_ancestor_mask
 
     B = 8
-    lengths = [40 + 9 * b for b in range(B)]
-    if name in ("paged target tree pass", "unmapped blocks, fully masked row"):
+    long = name.startswith("long")
+    nb = LONG_NB if long else NB
+    S = nb * BLOCK
+    lengths = [(LONG_COMMITTED + 97 * b) if long else (40 + 9 * b) for b in range(B)]
+    if name in ("paged target tree pass", "unmapped blocks, fully masked row", "long paged target tree pass"):
         T, H, Hkv = 7, 32, 8
     else:
         T = {"draft ingest Dp=1": 1, "draft ingest Dp=2": 2, "draft trunk": 1}[name]
         H, Hkv = 16, 4
     H, Hkv = heads or (H, Hkv)
-    k, v, tbl, pos = _paged_pool(torch, gen, dtype, B, Hkv, lengths, T)
+    k, v, tbl, pos = _paged_pool(torch, gen, dtype, B, Hkv, lengths, T, nb)
     length = torch.tensor(lengths, dtype=torch.int32, device="cuda")
-    slots = cache_slots(length, T, S_LOGICAL)
+    slots = cache_slots(length, T, S)
     bidx = torch.arange(B, device="cuda")[:, None]
     if T == 7:
         parents = torch.tensor([[-1, 0, 1, 2, 2, 3, 4]] * B, dtype=torch.int32, device="cuda")
@@ -377,26 +397,29 @@ def _paged_case_inputs(torch, name, dtype, gen, heads=None):
         mask = attn_mask_from_pos(pos, qpos)[:, 0]
     if name == "unmapped blocks, fully masked row":
         tbl[1:, 1:] = -1  # unmapped logical blocks read the trash block
-        mask = torch.rand(B, T, S_LOGICAL, generator=gen, device="cuda") < 0.05
+        mask = torch.rand(B, T, S, generator=gen, device="cuda") < 0.05
         mask[:, :, BLOCK:] &= (torch.arange(B, device="cuda") == 0)[:, None, None]
         mask[2, 3] = False
     q = torch.randn(B, T, H, 128, generator=gen, device="cuda").to(dtype)
     return q, k, v, tbl, mask.contiguous()
 
 
-def _ragged_case_inputs(torch, owners, dtype, gen, heads=(32, 8)):
+def _ragged_case_inputs(torch, owners, dtype, gen, heads=(32, 8), long=False):
     """(q, k_arena, v_arena, tbl, owner, mask) of the ragged pass: ``owners``
     (2, 2, 2) trees of 7 nodes packed back to back into Npad (a power of two)
-    lanes, padding lanes as forward passes them to the kernel (owner -1)."""
+    lanes, padding lanes as forward passes them to the kernel (owner -1).
+    ``long``: rows of LONG_NB blocks after ~LONG_COMMITTED tokens."""
     import numpy as np
 
     from repro_torch.models.cache import ragged_tree_mask
     from repro_torch.serving.serve_step import next_pow2
 
     B = 8
-    lengths = [40 + 9 * b for b in range(B)]
+    nb = LONG_NB if long else NB
+    S = nb * BLOCK
+    lengths = [(LONG_COMMITTED + 97 * b) if long else (40 + 9 * b) for b in range(B)]
     H, Hkv = heads
-    k, v, tbl, pos = _paged_pool(torch, gen, dtype, B, Hkv, lengths, 7)
+    k, v, tbl, pos = _paged_pool(torch, gen, dtype, B, Hkv, lengths, 7, nb)
     n = 7 * owners
     npad = next_pow2(n)
     parent1, depth1 = np.array([-1, 0, 1, 2, 2, 3, 4]), np.array([0, 1, 2, 3, 3, 4, 4])
@@ -413,7 +436,7 @@ def _ragged_case_inputs(torch, owners, dtype, gen, heads=(32, 8)):
     owner_t, parent_t, depth_t, local_t = (torch.as_tensor(a, device="cuda") for a in (owner, parent, depth, local))
     length = torch.tensor(lengths, dtype=torch.int32, device="cuda")
     q_pos = length[owner_t.long()] + depth_t
-    slots = torch.where(local_t >= 0, (length[owner_t.long()] + local_t.clamp_min(0)) % S_LOGICAL, S_LOGICAL)
+    slots = torch.where(local_t >= 0, (length[owner_t.long()] + local_t.clamp_min(0)) % S, S)
     real = local_t >= 0
     pos[owner_t.long()[real], slots.long()[real]] = q_pos[real]
     mask = ragged_tree_mask(pos, q_pos, owner_t, slots, parent_t)
@@ -453,17 +476,47 @@ def _commit_case_inputs(torch, dtype, gen, L, Hkv):
     return kf, vf, srcf, dstf
 
 
-def _check(torch, kernel, case, dname, out, ref):
-    err = (out.float() - ref.float()).abs().max().item()
-    if not torch.isfinite(out).all() or err > TOLERANCE[dname]:
-        raise RuntimeError(f"{kernel} disagrees with its plain version: {case} {dname} "
-                           f"max abs err {err} > {TOLERANCE[dname]} (or not finite)")
-    return err
-
-
 def _row_errs(out, ref):
     """(max|out - ref|, max|ref|) of each batch row."""
     return ((out.float() - ref.float()).abs().flatten(1).amax(dim=1), ref.float().abs().flatten(1).amax(dim=1))
+
+
+def _check_tree(torch, kernel, case, dname, out, ref):
+    """Hold a tree kernel's (..., H, D) output to TREE_TOLERANCE_RULE; returns
+    (max abs err, max over query rows of the row's err / its largest |ref|,
+    rows with no scale of their own, padding lanes, left out of the ratio)."""
+    diff, scale = _row_errs(out.flatten(0, -3), ref.flatten(0, -3))
+    err, has = diff.max().item(), scale > 0
+    rel = (diff[has] / scale[has]).max().item() if bool(has.any()) else 0.0
+    if (not torch.isfinite(out).all() or err > TOLERANCE[dname]
+            or not bool((diff <= TOLERANCE[dname] * scale).all())):
+        raise RuntimeError(f"{kernel} disagrees with its plain version: {case} {dname} max abs err {err}, "
+                           f"max err / max|ref| of a query row {rel} (tolerance {TOLERANCE[dname]}; or not finite)")
+    return err, rel
+
+
+def _dropped_tree_split_control(torch, plain, mask, want, dname):
+    """The tree check's sensitivity on a long cache: ``plain(mask)`` with the
+    first split's slots [0, SPLIT_SLOTS) left out of the mask, as a kernel
+    that lost that split would give.  Returns the smallest err / max|ref|
+    over the query rows that admitted a key there; it must exceed
+    TOLERANCE, or the check could not see such a fault."""
+    from repro_torch.kernels.tree_attention import SPLIT_SLOTS
+
+    cut = mask.clone()
+    cut[..., :SPLIT_SLOTS] = False
+    diff, scale = _row_errs(plain(cut).flatten(0, -3), want.flatten(0, -3))
+    lost = mask[..., :SPLIT_SLOTS].any(dim=-1).expand(want.shape[:-2]).reshape(-1) & (scale > 0)
+    rel = (diff[lost] / scale[lost]).min().item()
+    if not rel > TOLERANCE[dname]:
+        raise RuntimeError(f"the tree check cannot see a dropped {SPLIT_SLOTS}-slot split ({dname}): {rel}")
+    return rel
+
+
+def _log_control(control, dname):
+    if control is not None:
+        log(f"    control: the first split's keys left out give err / max|ref| >= {control:.3e} in every query "
+            f"row that admitted one (tolerance {TOLERANCE[dname]:.0e})")
 
 
 def _check_decode(torch, kernel, case, dname, out, ref):
@@ -507,17 +560,22 @@ def paged_kernel_rows(torch, dtype, gen, timer):
         paged_tree_attention_ref,
         ragged_tree_attention_ref,
     )
+    from repro_torch.kernels.tree_attention import SPLIT_ABOVE
 
     dname = str(dtype).replace("torch.", "")
     rows = []
 
-    def record(kernel, case, shape, err, ms, plain_ms, composed_ms, composed, bound):
+    def record(kernel, case, shape, err, ms, plain_ms, composed_ms, composed, bound, rel=None, control=None):
         rows.append({"kernel": kernel, "case": case, "dtype": dname, "shape": shape, "max_abs_err": err,
                      "tolerance": TOLERANCE[dname], "ms": ms, "plain_ms": plain_ms, "library_ms": None,
                      "composed_ms": composed_ms, "composed_of": composed, "bound_ms": bound[0],
-                     "bound_by": bound[1]})
-        log(f"  {kernel} {case:50s} {dname:8s} err {err:.3e}  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
-            f"{composed} {composed_ms:.4f} ms  bound {bound[0]:.5f} ms ({bound[1]})")
+                     "bound_by": bound[1]}
+                    | ({} if rel is None else {"max_rel_err": rel, "tolerance_rule": TREE_TOLERANCE_RULE,
+                                               "dropped_split_control": control}))
+        log(f"  {kernel} {case:50s} {dname:8s} err {err:.3e}" + ("" if rel is None else f" rel {rel:.3e}")
+            + f"  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  {composed} {composed_ms:.4f} ms  "
+            f"bound {bound[0]:.5f} ms ({bound[1]})")
+        _log_control(control, dname)
 
     for case, heads in [(c, None) for c in PAGED_CASES] + [(c, _moe_heads(c)) for c in MOE_PAGED_CASES]:
         q, k, v, tbl, mask = _paged_case_inputs(torch, case, dtype, gen, heads)
@@ -525,7 +583,13 @@ def paged_kernel_rows(torch, dtype, gen, timer):
             case = f"{case}, qwen3-moe heads"
         out = paged_tree_attention(q, k, v, tbl, mask)
         torch.cuda.synchronize()
-        err = _check(torch, "paged_tree_attention", case, dname, out, paged_tree_attention_ref(q, k, v, tbl, mask))
+        want = paged_tree_attention_ref(q, k, v, tbl, mask)
+        err, rel = _check_tree(torch, "paged_tree_attention", case, dname, out, want)
+        control = None
+        if mask.shape[-1] > SPLIT_ABOVE:
+            control = _dropped_tree_split_control(torch, lambda m: paged_tree_attention_ref(q, k, v, tbl, m), mask,
+                                                  want, dname)
+        del want
         B, T, H, D = q.shape
 
         def composed():
@@ -538,24 +602,45 @@ def paged_kernel_rows(torch, dtype, gen, timer):
         bound = rows_bound(torch, q.reshape(B * T, H, D), rmask, group, B, k.shape[2],
                            mask.numel() + tbl.numel() * 4)
         record("paged_tree_attention", case,
-               {"B": B, "T": T, "H": H, "Hkv": k.shape[2], "D": D, "block": BLOCK, "max_blocks": NB},
+               {"B": B, "T": T, "H": H, "Hkv": k.shape[2], "D": D, "block": BLOCK, "max_blocks": tbl.shape[1]},
                err, timer(lambda: paged_tree_attention(q, k, v, tbl, mask)),
                timer(lambda: paged_tree_attention_ref(q, k, v, tbl, mask)), timer(composed),
-               "gather+sdpa", bound)
+               "gather+sdpa", bound, rel, control)
+        del k, v
+        torch.cuda.empty_cache()
 
-    for owners, heads in [(n, (32, 8)) for n in RAGGED_CASES] + [(8, MOE_HEADS["target"])]:
-        case = f"ragged target pass, {owners} owners" + ("" if heads == (32, 8) else ", qwen3-moe heads")
-        q, k, v, tbl, owner, mask = _ragged_case_inputs(torch, owners, dtype, gen, heads)
+    for owners, heads, long in [(n, (32, 8), False) for n in RAGGED_CASES] + [(8, MOE_HEADS["target"], False),
+                                                                               (8, (32, 8), True)]:
+        case = (f"ragged target pass, {owners} owners" + ("" if heads == (32, 8) else ", qwen3-moe heads")
+                + (f", {LONG_NB}-block rows" if long else ""))
+        q, k, v, tbl, owner, mask = _ragged_case_inputs(torch, owners, dtype, gen, heads, long)
         out = ragged_paged_tree_attention(q, k, v, tbl, owner, mask)
         torch.cuda.synchronize()
-        err = _check(torch, "ragged_paged_tree_attention", case, dname, out,
-                     ragged_tree_attention_ref(q, k, v, tbl, owner, mask))
+        want = ragged_tree_attention_ref(q, k, v, tbl, owner, mask)
+        err, rel = _check_tree(torch, "ragged_paged_tree_attention", case, dname, out, want)
+        control = None
+        if long:
+            control = _dropped_tree_split_control(
+                torch, lambda m: ragged_tree_attention_ref(q, k, v, tbl, owner, m), mask, want, dname)
+        del want
         N, H, D = q.shape
 
         def composed():  # padding lanes attend over row 0, as in the JAX package
             kd, vd = paged_gather_kv_ref(k, v, tbl[owner.long().clamp_min(0)])
             return F.scaled_dot_product_attention(q[:, :, None], kd.transpose(1, 2), vd.transpose(1, 2),
                                                   attn_mask=mask[:, None, None], enable_gqa=True)
+
+        composed_of = "gather+sdpa"
+        if long:  # a view per node would not fit in fp32: each owner's row once, SDPA over its 7 nodes
+            real_idx = (owner >= 0).nonzero()[:, 0]
+            own = owner[real_idx].long().reshape(-1, 7)[:, 0]
+            qr, mr = q[real_idx].reshape(-1, 7, H, D).transpose(1, 2), mask[real_idx].reshape(-1, 7, mask.shape[-1])
+            composed_of = "gather per owner row+sdpa"
+
+            def composed():
+                kd, vd = paged_gather_kv_ref(k, v, tbl[own])
+                return F.scaled_dot_product_attention(qr, kd.transpose(1, 2), vd.transpose(1, 2),
+                                                      attn_mask=mr[:, None], enable_gqa=True)
 
         # real lanes only: a padding lane reads nothing and writes zeros
         real = owner >= 0
@@ -564,10 +649,12 @@ def paged_kernel_rows(torch, dtype, gen, timer):
                            mask[real].numel() + tbl.numel() * 4 + owner.numel() * 4
                            + n_pad * H * D * q.element_size())
         record("ragged_paged_tree_attention", case,
-               {"Npad": N, "owners": owners, "padding_lanes": n_pad, "H": H, "Hkv": k.shape[2], "D": D, "block": BLOCK, "max_blocks": NB},
+               {"Npad": N, "owners": owners, "padding_lanes": n_pad, "H": H, "Hkv": k.shape[2], "D": D, "block": BLOCK, "max_blocks": tbl.shape[1]},
                err, timer(lambda: ragged_paged_tree_attention(q, k, v, tbl, owner, mask)),
-               timer(lambda: ragged_tree_attention_ref(q, k, v, tbl, owner, mask)), timer(composed),
-               "gather+sdpa", bound)
+               timer(lambda: ragged_tree_attention_ref(q, k, v, tbl, owner, mask)),
+               (torch.cuda.empty_cache(), timer(composed))[1], composed_of, bound, rel, control)
+        del k, v
+        torch.cuda.empty_cache()
 
     for arena, L, Hkv in COMMIT_ARENAS:
         case = f"{arena}, B*P = 32, chains + trash padding"
@@ -808,32 +895,63 @@ def _run_engine(torch, eng, prompts, max_new, n_layers):
     return outs, wall, launches, be
 
 
+# device kernels of each tree-kernel row, by name (a split call adds its combine kernel);
+# the padded and the ragged entry run the same paged_attention_kernel
+PROFILE_KERNELS = {"tree_attention": ("tree_attention_kernel", "tree_attention_combine_kernel"),
+                   "paged_tree_attention + ragged_paged_tree_attention":
+                       ("paged_attention_kernel", "paged_attention_combine_kernel"),
+                   "commit_kv": ("commit_kv_kernel",)}
+PROFILE_WRAPPERS = {"tree_attention": ("tree_attention",),
+                    "paged_tree_attention + ragged_paged_tree_attention":
+                        ("paged_tree_attention", "ragged_paged_tree_attention"),
+                    "commit_kv": ("commit_kv",)}
+
+
+def _kernel_times(by_name, wrapper_launches):
+    """{row: {"ms", "launches", "us_per_launch"}}: each tree-kernel row's
+    device time in a profiled window, its wrapper calls in that window, and
+    the in-engine device time per call."""
+    out = {}
+    for row, names in PROFILE_KERNELS.items():
+        ms = sum(t for n, t in by_name.items() if any(k in n for k in names))
+        n = sum(wrapper_launches[w] for w in PROFILE_WRAPPERS[row])
+        out[row] = {"ms": ms, "launches": n, "us_per_launch": 1e3 * ms / n if n else None}
+    return out
+
+
 def _profile(torch, eng, prompt):
     """Where the time goes in one request of 16 tokens: device time by
     kernel from torch.profiler (CUPTI), and the device's busy share of the
     profiled wall time (the profiler's own host cost inflates that wall)."""
     from torch.profiler import ProfilerActivity, profile
 
+    counters = _launch_counters()
     torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         eng.generate(prompt, max_new=16)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    wrapper_launches = {name: fn.launches for name, fn in counters.items()}
     by_name: dict[str, float] = {}
     for evt in prof.events():
         if evt.device_type == torch.autograd.DeviceType.CUDA:
             by_name[evt.name] = by_name.get(evt.name, 0.0) + evt.time_range.elapsed_us() / 1e3
     busy_ms = sum(by_name.values())
     steps = eng.counters["blocks"]
-    attn_ms = sum(t for n, t in by_name.items() if "tree_attention_kernel" in n)
+    mine = _kernel_times(by_name, wrapper_launches)
+    attn_ms = mine["tree_attention"]["ms"]
+    ops = [(e.key, e.self_cpu_time_total / 1e3, e.count) for e in prof.key_averages()]
+    launches = sum(n for k, _, n in ops if k in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"))
     log(f"  profile: {steps} steps, wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms "
-        f"({100 * busy_ms / wall_ms:.1f} %), tree_attention {attn_ms:.2f} ms "
-        f"({100 * attn_ms / max(busy_ms, 1e-9):.1f} % of busy)")
+        f"({100 * busy_ms / wall_ms:.1f} %), kernel launches {launches}, tree_attention {attn_ms:.2f} ms "
+        f"({100 * attn_ms / max(busy_ms, 1e-9):.1f} % of busy) in {mine['tree_attention']['launches']} calls, "
+        f"{mine['tree_attention']['us_per_launch']:.2f} us a call")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     for name, t in top:
         log(f"    device {t:9.3f} ms  {name[:100]}")
-    ops = [(e.key, e.self_cpu_time_total / 1e3, e.count) for e in prof.key_averages()]
     torch_host_ms = sum(t for _, t, _ in ops)
     log(f"  host: {torch_host_ms:.2f} ms inside torch ops (self CPU time, waits in copies to the host included), "
         f"{wall_ms - torch_host_ms:.2f} ms outside them (Python, numpy verification)")
@@ -841,7 +959,8 @@ def _profile(torch, eng, prompt):
     for name, t, n in host:
         log(f"    host self {t:9.3f} ms  x{n:<6d} {name[:80]}")
     return {"steps": steps, "wall_ms": wall_ms, "device_busy_ms": busy_ms, "tree_attention_ms": attn_ms,
-            "torch_host_ms": torch_host_ms, "top_kernels_ms": top, "top_host_self_ms": host}
+            "launches": launches, "kernel_ms": mine, "torch_host_ms": torch_host_ms, "top_kernels_ms": top,
+            "top_host_self_ms": host}
 
 
 def phase_main_path(torch):
@@ -1022,31 +1141,36 @@ def _profile_batched(torch, eng, prompts, seeds, n_steps):
     steps of a full pool (8 resident streams)."""
     from torch.profiler import ProfilerActivity, profile
 
+    counters = _launch_counters()
     for p, sd in zip(prompts, seeds):
         eng.submit(p, max_new=48, seed=sd)
     eng.step()  # admission and the first step outside the window
     torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n_steps):
             eng.step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    wrapper_launches = {name: fn.launches for name, fn in counters.items()}
     eng.abort_pipeline()
     by_name: dict[str, float] = {}
     for evt in prof.events():
         if evt.device_type == torch.autograd.DeviceType.CUDA:
             by_name[evt.name] = by_name.get(evt.name, 0.0) + evt.time_range.elapsed_us() / 1e3
     busy_ms = sum(by_name.values())
-    mine = {k: sum(t for n, t in by_name.items() if k in n)
-            for k in ("tree_attention_kernel", "paged_attention_kernel", "commit_kv_kernel")}
+    mine = _kernel_times(by_name, wrapper_launches)
     ops = [(e.key, e.self_cpu_time_total / 1e3, e.count) for e in prof.key_averages()]
     torch_host_ms = sum(t for _, t, _ in ops)
     launches = sum(n for k, _, n in ops if k in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"))
     log(f"  profile: {n_steps} steps of 8 streams, wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms "
         f"({100 * busy_ms / wall_ms:.1f} %), kernel launches {launches}")
-    for k, t in mine.items():
-        log(f"    {k:24s} {t:9.3f} ms ({100 * t / max(busy_ms, 1e-9):.1f} % of busy)")
+    for k, r in mine.items():
+        per = "" if r["us_per_launch"] is None else f", {r['us_per_launch']:.2f} us a call"
+        log(f"    {k:52s} {r['ms']:9.3f} ms ({100 * r['ms'] / max(busy_ms, 1e-9):.1f} % of busy) in "
+            f"{r['launches']} calls{per}")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     for name, t in top:
         log(f"    device {t:9.3f} ms  {name[:100]}")
@@ -1369,7 +1493,15 @@ def main():
                                       "masked pass to the tree kernels; launches counts the main-path runs")
         entries.append(entry)
     kernels = {"kernels": entries}
+    # the tree kernels' device time per call inside the engines (profiled windows of phases 3-5)
+    in_engine = {phase: prof["profile"]["kernel_ms"] for phase, prof in
+                 (("phase 3 granite one stream", main_path), ("phase 4 granite 8 streams", batched),
+                  ("phase 5 qwen3-moe 8 streams", moe))}
+    for phase, rows_ in in_engine.items():
+        log(f"  in-engine device time per call, {phase}: " + ", ".join(
+            f"{k} {r['us_per_launch']:.2f} us x {r['launches']}" for k, r in rows_.items() if r["launches"]))
     summary = {"main_path": main_path, "draft_card_vs_cpu_rel_err": ref_err, "batched": batched,
+               "in_engine_device_time_per_call": in_engine,
                "batched_draft_card_vs_cpu_rel_err": batched_ref_err, "moe": moe,
                "moe_draft_card_vs_cpu_rel_err": moe_ref_err, "nvidia_smi": smi,
                "seconds": time.perf_counter() - t_start}

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` file exports a plain C interface and compiles on its
 own into ``build/lib<name>-<hash>.so`` beside this module (the directory is
-git-ignored).  The hash covers the source and the flags, so an edited source
-never loads a stale library.  A build happens at first use, on the machine
+git-ignored).  The hash covers the source, every ``csrc/*.cuh`` header (a
+source may include one) and the flags, so an edited source or header never
+loads a stale library.  A build happens at first use, on the machine
 with the card: ``load(name)`` builds what is missing and returns the loaded
 library.  ``build(names)`` starts one ``nvcc`` per missing source, all at
 once, and waits for them, so the build time of several kernels is that of
@@ -40,7 +41,8 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -10,7 +10,9 @@ are ``kernels.ref.paged_tree_attention_ref`` and
 These functions only launch: they take CUDA tensors and raise on anything
 the kernel does not take (CPU tensors included).  ``kernels.ops`` is the
 dispatch by device.  ``paged_tree_attention.launches`` and
-``ragged_paged_tree_attention.launches`` count the launches of each.
+``ragged_paged_tree_attention.launches`` count the calls of each (one call
+is one launch, or a split pass and its combine past 4096 slots).  Their
+schedule is ``tree_attention.launch_schedule``.
 """
 from __future__ import annotations
 
@@ -19,10 +21,11 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.tree_attention import launch_schedule, mask_vectorizable, partials
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)  # the instances compiled in csrc/paged_tree_attention.cu
-_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 14 + [ctypes.c_void_p]
 
 
 def _check(kernel: str, q, k_arena, v_arena, tbl, mask, tensors: dict) -> None:
@@ -51,13 +54,17 @@ def _check(kernel: str, q, k_arena, v_arena, tbl, mask, tensors: dict) -> None:
 def _launch(kernel, q, k_arena, v_arena, tbl, owner, mask, R, T, Bm) -> torch.Tensor:
     H, D = q.shape[-2], q.shape[-1]
     block, Hkv = k_arena.shape[1], k_arena.shape[2]
+    S = tbl.shape[1] * block
     out = torch.empty_like(q)
+    tq, gh, split_slots, n_split = launch_schedule(H, Hkv, S)
     with torch.cuda.device(q.device):
+        part_ml, part_acc, _keep = partials(n_split, R, H, D, q.device)
         stream = torch.cuda.current_stream().cuda_stream
         fn = build.function("paged_tree_attention", "paged_tree_attention_launch", _ARGTYPES)
         code = fn(q.data_ptr(), k_arena.data_ptr(), v_arena.data_ptr(), tbl.data_ptr(),
-                  None if owner is None else owner.data_ptr(), mask.data_ptr(), out.data_ptr(),
-                  R, T, H, Hkv, block, tbl.shape[1], D, Bm, _DTYPES[q.dtype], stream)
+                  None if owner is None else owner.data_ptr(), mask.data_ptr(), out.data_ptr(), part_ml, part_acc,
+                  R, T, H, Hkv, block, tbl.shape[1], D, Bm, tq, gh, split_slots, n_split,
+                  mask_vectorizable(mask, S), _DTYPES[q.dtype], stream)
     build.check_launch("paged_tree_attention", code)
     return out
 

@@ -8,7 +8,13 @@ version of the same function is ``kernels.ref.tree_attention_ref``.
 
 This function only launches: it takes CUDA tensors and raises on anything
 the kernel does not take (CPU tensors included).  ``kernels.ops`` is the
-dispatch by device.  ``tree_attention.launches`` counts the launches.
+dispatch by device.  ``tree_attention.launches`` counts the calls (one call
+is one launch, or a split pass and its combine past 4096 slots).
+
+``launch_schedule`` is the host's part of the design shared with the paged
+kernels (csrc/tree_attention_body.cuh): how many query rows and heads a CTA
+serves, and whether the keys are split over CTAs.  It reads shapes only,
+never the mask or the owners, so a launch needs no host sync.
 """
 from __future__ import annotations
 
@@ -20,7 +26,44 @@ from repro_torch.kernels import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)  # the instances compiled in csrc/tree_attention.cu
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
+
+MAX_SCORE_ROWS = 128  # query heads x query rows per CTA: 8 warps of one m16 tile
+MAX_QUERY_ROWS = 32   # query rows per CTA (one 32-key mask word each in shared memory)
+SPLIT_ABOVE = 4096    # caches longer than this split their keys over CTAs
+SPLIT_SLOTS = 2048    # keys per split then
+CHUNK = 32            # keys per staged chunk
+
+
+def launch_schedule(H: int, Hkv: int, S: int) -> tuple[int, int, int, int]:
+    """(tq, gh, split_slots, n_split) of a launch over S key slots.
+
+    A CTA serves gh query heads of one KV head (all G = H / Hkv unless G
+    exceeds MAX_SCORE_ROWS) for a tile of up to tq query rows, gh * tq <=
+    MAX_SCORE_ROWS.  At S <= SPLIT_ABOVE the keys are one range (S rounded
+    up to whole chunks) and a call is one launch.  Past it they split into
+    ranges of SPLIT_SLOTS slots and a combine launch merges them.  Shapes
+    only: never the mask nor the owners."""
+    gh = min(H // Hkv, MAX_SCORE_ROWS)
+    tq = max(1, min(MAX_QUERY_ROWS, MAX_SCORE_ROWS // gh))
+    if S <= SPLIT_ABOVE:
+        return tq, gh, -(-S // CHUNK) * CHUNK, 1
+    return tq, gh, SPLIT_SLOTS, -(-S // SPLIT_SLOTS)
+
+
+def partials(n_split: int, rows: int, H: int, D: int, device) -> tuple[int | None, int | None, tuple]:
+    """The fp32 (m, l) and acc workspace of a split launch, as (ptr, ptr,
+    keep-alive tensors); null pointers when the launch has one split."""
+    if n_split == 1:
+        return None, None, ()
+    ml = torch.empty(n_split * rows * H * 2, dtype=torch.float32, device=device)
+    acc = torch.empty(n_split * rows * H * D, dtype=torch.float32, device=device)
+    return ml.data_ptr(), acc.data_ptr(), (ml, acc)
+
+
+def mask_vectorizable(mask: torch.Tensor, S: int) -> int:
+    """1 when the kernel may read mask rows with 16-byte loads."""
+    return int(S % 16 == 0 and mask.data_ptr() % 16 == 0)
 
 
 def tree_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -51,11 +94,14 @@ def tree_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.data_ptr() % 16 or v.data_ptr() % 16:
         raise ValueError("tree_attention: k and v must start on a 16-byte boundary (16-byte loads)")
     out = torch.empty_like(q)
+    tq, gh, split_slots, n_split = launch_schedule(H, Hkv, S)
     with torch.cuda.device(q.device):
+        part_ml, part_acc, _keep = partials(n_split, B * T, H, D, q.device)
         stream = torch.cuda.current_stream().cuda_stream
         fn = build.function("tree_attention", "tree_attention_launch", _ARGTYPES)
-        code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(),
-                  B, T, H, Hkv, S, D, mask.shape[0], _DTYPES[q.dtype], stream)
+        code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(), part_ml, part_acc,
+                  B, T, H, Hkv, S, D, mask.shape[0], tq, gh, split_slots, n_split,
+                  mask_vectorizable(mask, S), _DTYPES[q.dtype], stream)
     build.check_launch("tree_attention", code)
     tree_attention.launches += 1
     return out

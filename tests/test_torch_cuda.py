@@ -13,6 +13,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels.ops import gqa_tree_attention
 from repro_torch.kernels.ref import tree_attention_ref
 from repro_torch.kernels.tree_attention import tree_attention
+from test_torch_edge_masks import EDGE_KINDS, edge_mask
 
 # float32: summation order only; bfloat16: one rounding of the output
 TOLERANCE = {"float32": 1e-4, "bfloat16": 2e-2}
@@ -25,6 +26,14 @@ def _row_rel_err(out, want):
     would pass zeros."""
     diff = (out.float() - want.float()).abs().flatten(1).amax(dim=1)
     return (diff / want.float().abs().flatten(1).amax(dim=1)).max().item()
+
+
+def _query_row_rel_err(out, want):
+    """``_row_rel_err`` over query rows of (..., H, D) outputs.  The tree
+    kernels' long-cache tests hold it to TOLERANCE: a row that averages
+    ~30000 keys is ~0.01-0.03, where an absolute 2e-2 would pass a lost
+    split."""
+    return _row_rel_err(out.flatten(0, -3), want.flatten(0, -3))
 
 
 @pytest.fixture
@@ -319,3 +328,140 @@ def test_decode_attention_refuses_what_it_does_not_take(cuda):
         decode_attention(q, k, k, ln.long())
     with pytest.raises(ValueError, match="on cpu"):
         decode_attention(q.cpu(), k.cpu(), k.cpu(), ln.cpu())
+
+
+# ------------------------------------------- the redesigned tree kernels' edges ---
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", EDGE_KINDS)
+@pytest.mark.parametrize("B,T,H,Hkv,S,D,Bm", [
+    (1, 7, 32, 8, 1024, 128, 1),   # G 4, the target tree pass
+    (2, 17, 16, 1, 1024, 128, 2),  # G 16: tiles of 8 query rows, a mask per row
+    (3, 33, 4, 4, 512, 64, 3),     # G 1: tiles of 32 query rows
+    (2, 1, 64, 4, 1000, 128, 1),   # G 16, one query row, S not a chunk multiple, one mask for B 2
+])
+def test_tree_attention_at_mask_edges(cuda, dtype, kind, B, T, H, Hkv, S, D, Bm):
+    gen = torch.Generator(device=cuda).manual_seed(T * 100 + H)
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda).to(dt)
+               for shape in ((B, T, H, D), (B, S, Hkv, D), (B, S, Hkv, D)))
+    mask = torch.as_tensor(edge_mask(kind, Bm, T, S, seed=T), device=cuda)
+    before = tree_attention.launches
+    out = tree_attention(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert tree_attention.launches == before + 1
+    assert out.dtype == dt and torch.isfinite(out).all()
+    err = (out.float() - tree_attention_ref(q, k, v, mask).float()).abs().max().item()
+    assert err <= TOLERANCE[dtype], err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("H,Hkv", [(32, 8), (64, 4)])
+@pytest.mark.parametrize("full_row", [False, True])
+def test_tree_attention_long_cache_splits(cuda, dtype, H, Hkv, full_row):
+    """S = 32768 takes the split path (16 splits of 2048 slots and a
+    combine): a (2, 2, 2) target pass after 30000 committed tokens, with or
+    without a fully masked row (the combine's mean of V).  Each query row is
+    held to TOLERANCE x its own largest |output|."""
+    gen = torch.Generator(device=cuda).manual_seed(H)
+    dt = getattr(torch, dtype)
+    S, T, D = 32768, 7, 128
+    q = torch.randn((1, T, H, D), generator=gen, device=cuda).to(dt)
+    k, v = (torch.randn((1, S, Hkv, D), generator=gen, device=cuda).to(dt) for _ in range(2))
+    mask = torch.as_tensor(edge_mask("runs straddling chunk edges", 1, T, S, prefix=30000), device=cuda)
+    if full_row:
+        mask[0, 2] = False
+    out = tree_attention(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    want = tree_attention_ref(q, k, v, mask)
+    err = (out.float() - want.float()).abs().max().item()
+    assert err <= TOLERANCE[dtype], err
+    rel = _query_row_rel_err(out, want)
+    assert rel <= TOLERANCE[dtype], rel
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", EDGE_KINDS)
+@pytest.mark.parametrize("B,T,H,Hkv,D,block,nb,unmapped,Bm", [
+    (4, 7, 32, 8, 128, 64, 16, 3, 4),   # padded target pass, unmapped tails
+    (2, 17, 64, 4, 64, 16, 8, 1, 1),    # G 16, 16-slot blocks, one mask for both rows
+])
+def test_paged_tree_attention_at_mask_edges(cuda, dtype, kind, B, T, H, Hkv, D, block, nb, unmapped, Bm):
+    from repro_torch.kernels.paged_tree_attention import paged_tree_attention
+    from repro_torch.kernels.ref import paged_tree_attention_ref
+
+    q, k, v, tbl, _ = _paged_inputs(cuda, dtype, B, T, H, Hkv, D, block, nb, B * nb + 2, seed=T + nb,
+                                    unmapped=unmapped)
+    mask = torch.as_tensor(edge_mask(kind, Bm, T, nb * block, seed=B), device=cuda)
+    out = paged_tree_attention(q, k, v, tbl, mask)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    err = (out.float() - paged_tree_attention_ref(q, k, v, tbl, mask).float()).abs().max().item()
+    assert err <= TOLERANCE[dtype], err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("owners,H,Hkv", [
+    ([0] * 20 + [1] * 3 + [0] * 5 + [-1] * 4, 64, 4),  # G 16 (tiles of 8): a run over 3 tiles, 0 recurs
+    ([2] * 40 + [1] * 7 + [2] * 2 + [-1] * 15, 32, 8),  # G 4 (tiles of 32): a run of 40
+    ([0, 1] * 9 + [-1, 1, -1], 8, 8),                    # G 1: runs of one node, padding between
+])
+def test_ragged_paged_tree_attention_owner_runs(cuda, dtype, owners, H, Hkv):
+    from repro_torch.kernels.paged_tree_attention import ragged_paged_tree_attention
+    from repro_torch.kernels.ref import ragged_tree_attention_ref
+
+    B, N, nb, block, D = max(owners) + 1, len(owners), 16, 64, 128
+    gen = torch.Generator(device=cuda).manual_seed(N + H)
+    dt = getattr(torch, dtype)
+    q = torch.randn((N, H, D), generator=gen, device=cuda).to(dt)
+    k, v = (torch.randn((B * nb + 1, block, Hkv, D), generator=gen, device=cuda).to(dt) for _ in range(2))
+    tbl = (torch.randperm(B * nb, generator=gen, device=cuda) + 1).reshape(B, nb).to(torch.int32)
+    tbl[:, nb - 3:] = -1
+    owner = torch.tensor(owners, dtype=torch.int32, device=cuda)
+    mask = torch.as_tensor(edge_mask("fully masked row in a tile", 1, N, nb * block, seed=N)[0], device=cuda)
+    mask[3] |= torch.as_tensor(edge_mask("runs straddling chunk edges", 1, 1, nb * block)[0, 0], device=cuda)
+    out = ragged_paged_tree_attention(q, k, v, tbl, owner, mask)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all() and not out[owner < 0].any()
+    err = (out.float() - ragged_tree_attention_ref(q, k, v, tbl, owner, mask).float()).abs().max().item()
+    assert err <= TOLERANCE[dtype], err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_and_ragged_attention_long_rows_split(cuda, dtype):
+    """Rows of 512 64-slot blocks (32768 slots) take the split path: a
+    padded target pass over 2 rows (one with unmapped tail blocks, one
+    fully masked row), then the ragged pass over both owners and padding.
+    Each query row is held to TOLERANCE x its own largest |output|."""
+    from repro_torch.kernels.paged_tree_attention import paged_tree_attention, ragged_paged_tree_attention
+    from repro_torch.kernels.ref import paged_tree_attention_ref, ragged_tree_attention_ref
+
+    B, T, H, Hkv, D, block, nb = 2, 7, 32, 8, 128, 64, 512
+    q, k, v, tbl, _ = _paged_inputs(cuda, dtype, B, T, H, Hkv, D, block, nb, B * nb + 1, seed=3)
+    tbl[1, 400:] = -1
+    mask = torch.as_tensor(edge_mask("runs straddling chunk edges", B, T, nb * block, prefix=25000), device=cuda)
+    mask[1, 4] = False
+    out = paged_tree_attention(q, k, v, tbl, mask)
+    torch.cuda.synchronize()
+    want = paged_tree_attention_ref(q, k, v, tbl, mask)
+    err = (out.float() - want.float()).abs().max().item()
+    assert torch.isfinite(out).all() and err <= TOLERANCE[dtype], err
+    rel = _query_row_rel_err(out, want)
+    assert rel <= TOLERANCE[dtype], rel
+    owner = torch.tensor([0] * T + [1] * T + [-1, -1], dtype=torch.int32, device=cuda)
+    qn = torch.cat([q.reshape(B * T, H, D), q[0, :2]])
+    mn = torch.cat([mask.reshape(B * T, -1), mask[0, :2]])
+    out = ragged_paged_tree_attention(qn, k, v, tbl, owner, mn)
+    torch.cuda.synchronize()
+    want = ragged_tree_attention_ref(qn, k, v, tbl, owner, mn)
+    err = (out.float() - want.float()).abs().max().item()
+    assert torch.isfinite(out).all() and not out[-2:].any() and err <= TOLERANCE[dtype], err
+    rel = _query_row_rel_err(out[:-2], want[:-2])  # the padding lanes are zeros: no scale of their own
+    assert rel <= TOLERANCE[dtype], rel
