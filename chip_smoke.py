@@ -14,9 +14,13 @@
    never calls it), else the composition of PyTorch calls that does
    (``composed_ms``, e.g. the block-table gather then SDPA), with CUDA
    events, a cold L2 before every launch, median of several launches; and
-   the least time the card could take for the same work (bound_ms).  The
+   the least time the card could take for the same work (bound_ms).  For
+   commit_kv and the flash-decode wrappers it also gives the host time of
+   a call (``host_ms``) and the reading without ColdTimer's spin kernel
+   (``unspun_ms``).  The
    tree kernels run at the granite pair's heads and at the MoE pair's (H 64,
-   Hkv 4 and H 32, Hkv 2), and commit_kv on the arenas of both pairs.  The
+   Hkv 4 and H 32, Hkv 2), and commit_kv on the arenas of both pairs and at
+   3072 entries over 36 layers.  The
    tree kernels' long-cache rows (a 32768-slot ring, rows of 512 64-slot
    blocks, after ~30000 committed tokens) run their split path.  Every
    tree-kernel row is also held per query row to TOLERANCE times the row's
@@ -24,8 +28,9 @@
    plain version with the first split's keys left out must fail that
    check (the control).  The flash-decode kernels, which no engine calls
    (nor does one in the JAX package), run dense at decode_32k's seq (B 16,
-   S 32768; window 0 and 8192; lengths >= 1, with SDPA beside them, or with
-   a row at length 0), alone at B 128 against SDPA, and paged on phase 4's
+   S 32768; granite-8b's, Llama-3 70B's and qwen3-moe's heads, G 4, 8 and
+   16; window 0 and 8192; lengths >= 1, with SDPA beside them, or with a
+   row at length 0), alone at B 128 against SDPA, and paged on phase 4's
    arena and on rows of 512 blocks; their outputs are averages over up to
    32768 slots (~0.02-0.06), so each batch row is held to TOLERANCE times
    its own largest |output| (DECODE_TOLERANCE_RULE).
@@ -103,26 +108,46 @@ def log(*args):
 class ColdTimer:
     """Median device time of ``fn`` over REPS launches, each after a write
     of 256 MB that evicts the 50 MB L2 (on the main path every layer's K/V
-    arrive cold: a layer's weights stream through L2 in between)."""
+    arrive cold: a layer's weights stream through L2 in between).  A spin
+    kernel of ~0.5 ms then keeps the card busy while the host enqueues
+    ``fn``, so the start event fires with ``fn`` already queued: the time
+    holds no host gap.  With ``spin=False`` (no spin kernel) only the
+    ~0.08 ms flush covers the host's work, so a call whose host work
+    outlasts it adds the excess to the reading.  ``host_ms`` is the median
+    host time of the last call's ``fn()`` (the wrapper's checks,
+    allocations and launch, the card busy meanwhile)."""
 
     def __init__(self, torch):
         self.torch = torch
         self.flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+        self.host_ms = float("nan")
 
-    def __call__(self, fn) -> float:
+    def __call__(self, fn, spin=True) -> float:
         torch = self.torch
         for _ in range(3):
             fn()
-        times = []
+        times, hosts = [], []
         for _ in range(REPS):
             self.flush.zero_()
+            if spin:
+                torch.cuda._sleep(1_000_000)
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()
+            t0 = time.perf_counter()
             fn()
+            hosts.append(time.perf_counter() - t0)
             end.record()
             end.synchronize()
             times.append(start.elapsed_time(end))
+        self.host_ms = statistics.median(hosts) * 1e3
         return statistics.median(times)
+
+    def wrapper(self, fn) -> dict:
+        """A wrapper's readings: ``ms`` (spun), ``host_ms`` and
+        ``unspun_ms`` (``spin=False``)."""
+        ms = self(fn)
+        host_ms = self.host_ms
+        return {"ms": ms, "host_ms": host_ms, "unspun_ms": self(fn, spin=False)}
 
 
 def rows_bound(torch, q_rows, mask_rows, group, n_groups, hkv, extra_bytes):
@@ -294,7 +319,10 @@ def phase_kernels(torch):
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     timer = ColdTimer(torch)
-    rows = []
+    # the least reading a launch can give (events, a launch, a kernel that does nothing)
+    floor_ms = timer(lambda: torch.cuda._sleep(0))
+    log(f"  ColdTimer floor (a kernel that does nothing): {floor_ms:.4f} ms")
+    rows = [{"kernel": "null kernel (ColdTimer floor)", "case": "torch.cuda._sleep(0)", "ms": floor_ms}]
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).replace("torch.", "")
         for case, heads in [(c, None) for c in CASES] + [(c, _moe_heads(c)) for c in MOE_CASES]:
@@ -444,29 +472,33 @@ def _ragged_case_inputs(torch, owners, dtype, gen, heads=(32, 8), long=False):
     return q, k, v, tbl, torch.where(real, owner_t, -1), mask.contiguous()
 
 
-# (case, layers, KV heads) of the arenas the commits of phases 4 and 5 move
-COMMIT_ARENAS = [("36-layer arena", 36, 8), ("qwen3-moe target arena, 8 layers, Hkv 4", 8, 4),
-                 ("qwen3-moe draft arena, 23 layers, Hkv 2", 23, 2)]
+# (case, layers, KV heads, rows, entries a row) of the arenas the commits of phases 4 and 5
+# move, and the 36-layer arena at 3072 entries (64 rows x 48), the most an earlier
+# commit_kv took (the card tests hold the kernel at its own cap, MAX_ENTRIES)
+COMMIT_ARENAS = [("36-layer arena", 36, 8, 8, 4), ("qwen3-moe target arena, 8 layers, Hkv 4", 8, 4, 8, 4),
+                 ("qwen3-moe draft arena, 23 layers, Hkv 2", 23, 2, 8, 4),
+                 ("36-layer arena, 64 rows, 3072 entries", 36, 8, 64, 48)]
 
 
-def _commit_case_inputs(torch, dtype, gen, L, Hkv):
-    """The fused commit of an L-layer arena (8 rows x 16 blocks of 64 slots,
-    Hkv KV heads of 128): 8 rows x P = 4 entries translated through the
-    tables, as make_pool_commit_step stages them.  Rows 0-4 accept the
-    chain [2, 3, 4] (entry j's source is entry j+1's destination) and pad
-    with the root's identity copy; rows 5-7 are idle, their tables unmapped,
-    so 12 entries are identity copies of one trash lane."""
+def _commit_case_inputs(torch, dtype, gen, L, Hkv, B, P):
+    """The fused commit of an L-layer arena (B rows x 16 blocks of 64 slots,
+    Hkv KV heads of 128): B rows x P entries translated through the tables,
+    as make_pool_commit_step stages them.  The first 5/8 of the rows accept
+    the chain [2, 3, ..., P] (entry j's source is entry j+1's destination)
+    and pad with the root's identity copy; the other rows are idle, their
+    tables unmapped, so their entries are identity copies of one trash
+    lane."""
     from repro_torch.models.cache import paged_phys_slots
 
-    B, P = 8, 4
     k = torch.randn(L, B * NB + 1, BLOCK, Hkv, 128, generator=gen, device="cuda").to(dtype)
     v = torch.randn(L, B * NB + 1, BLOCK, Hkv, 128, generator=gen, device="cuda").to(dtype)
     tbl = (torch.randperm(B * NB, generator=gen, device="cuda") + 1).reshape(B, NB).to(torch.int32)
-    tbl[5:] = -1
-    C = torch.tensor([40 + 9 * b if b < 5 else 0 for b in range(B)], device="cuda")
-    path = torch.tensor([2, 3, 4, 0], device="cuda")
+    busy = 5 * B // 8
+    tbl[busy:] = -1
+    C = torch.tensor([40 + 9 * b if b < busy else 0 for b in range(B)], device="cuda")
     j = torch.arange(P, device="cuda")
-    valid = (j[None, :] < 3) & (torch.arange(B, device="cuda") < 5)[:, None]
+    path = torch.where(j < P - 1, j + 2, 0)
+    valid = (j[None, :] < P - 1) & (torch.arange(B, device="cuda") < busy)[:, None]
     src = torch.where(valid, C[:, None] + path, C[:, None])
     dst = torch.where(valid, C[:, None] + 1 + j, C[:, None])
     srcf = paged_phys_slots(tbl, src, BLOCK).reshape(1, -1).to(torch.int32)
@@ -519,6 +551,13 @@ def _log_control(control, dname):
             f"row that admitted one (tolerance {TOLERANCE[dname]:.0e})")
 
 
+def _log_wrapper(wrapper):
+    """The host time and the reading without the spin kernel, where timed."""
+    if "host_ms" not in wrapper:
+        return ""
+    return f"  host {wrapper['host_ms']:.4f} ms  unspun {wrapper['unspun_ms']:.4f} ms"
+
+
 def _check_decode(torch, kernel, case, dname, out, ref):
     """Hold a flash-decode output to DECODE_TOLERANCE_RULE; returns (max abs
     err, max over rows of the row's err / its largest |ref|)."""
@@ -566,15 +605,16 @@ def paged_kernel_rows(torch, dtype, gen, timer):
     rows = []
 
     def record(kernel, case, shape, err, ms, plain_ms, composed_ms, composed, bound, rel=None, control=None):
+        wrapper = ms if isinstance(ms, dict) else {"ms": ms}  # commit_kv: timer.wrapper's readings
         rows.append({"kernel": kernel, "case": case, "dtype": dname, "shape": shape, "max_abs_err": err,
-                     "tolerance": TOLERANCE[dname], "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                     "tolerance": TOLERANCE[dname], **wrapper, "plain_ms": plain_ms, "library_ms": None,
                      "composed_ms": composed_ms, "composed_of": composed, "bound_ms": bound[0],
                      "bound_by": bound[1]}
                     | ({} if rel is None else {"max_rel_err": rel, "tolerance_rule": TREE_TOLERANCE_RULE,
                                                "dropped_split_control": control}))
         log(f"  {kernel} {case:50s} {dname:8s} err {err:.3e}" + ("" if rel is None else f" rel {rel:.3e}")
-            + f"  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  {composed} {composed_ms:.4f} ms  "
-            f"bound {bound[0]:.5f} ms ({bound[1]})")
+            + f"  kernel {wrapper['ms']:.4f} ms  plain {plain_ms:.4f} ms  {composed} {composed_ms:.4f} ms  "
+            f"bound {bound[0]:.5f} ms ({bound[1]})" + _log_wrapper(wrapper))
         _log_control(control, dname)
 
     for case, heads in [(c, None) for c in PAGED_CASES] + [(c, _moe_heads(c)) for c in MOE_PAGED_CASES]:
@@ -656,9 +696,9 @@ def paged_kernel_rows(torch, dtype, gen, timer):
         del k, v
         torch.cuda.empty_cache()
 
-    for arena, L, Hkv in COMMIT_ARENAS:
-        case = f"{arena}, B*P = 32, chains + trash padding"
-        kf, vf, src, dst = _commit_case_inputs(torch, dtype, gen, L, Hkv)
+    for arena, L, Hkv, B, P in COMMIT_ARENAS:
+        case = f"{arena}, B*P = {B * P}, chains + trash padding"
+        kf, vf, src, dst = _commit_case_inputs(torch, dtype, gen, L, Hkv, B, P)
         want_k, want_v = commit_kv_ref(kf.clone(), vf.clone(), src, dst)
         got_k, got_v = commit_kv(kf, vf, src, dst)
         torch.cuda.synchronize()
@@ -677,7 +717,7 @@ def paged_kernel_rows(torch, dtype, gen, timer):
             vf.index_copy_(2, d, vf.index_select(2, s))
 
         record("commit_kv", case, {"L": L, "entries": E, "moves": M, "Hkv": kf.shape[3], "hd": kf.shape[4]}, 0.0,
-               timer(lambda: commit_kv(kf, vf, src, dst)), timer(lambda: commit_kv_ref(kf, vf, src, dst)),
+               timer.wrapper(lambda: commit_kv(kf, vf, src, dst)), timer(lambda: commit_kv_ref(kf, vf, src, dst)),
                timer(composed), "index_select+index_copy_", bound)
         del kf, vf
         torch.cuda.empty_cache()
@@ -688,7 +728,8 @@ def paged_kernel_rows(torch, dtype, gen, timer):
 
 DECODE_S = 32768  # decode_32k's cache (src/repro/launch/shapes.py:25)
 DECODE_WINDOW = 8192  # long_500k's sliding-window variant (shapes.py:39-40)
-DECODE_HEADS = {"granite-8b heads": (32, 8), "qwen3-moe heads": (64, 4)}
+# G 4, 8 and 16: the bf16 kernel's tile of 16 query heads padded, half padded, full
+DECODE_HEADS = {"granite-8b heads": (32, 8), "llama-3-70b heads": (64, 8), "qwen3-moe heads": (64, 4)}
 DECODE_VARIANTS = [(0, False), (DECODE_WINDOW, False), (0, True), (DECODE_WINDOW, True)]  # (window, a row at 0)
 
 
@@ -741,8 +782,8 @@ def _sdpa_decode(q, k, v, lengths, window):
 
 def decode_kernel_rows(torch, dtype, gen, timer):
     """Both flash-decode kernels against their plain versions, in one dtype:
-    dense at decode_32k's seq (B 16, S 32768) with granite-8b's and
-    qwen3-moe's heads, window 0 and 8192, lengths >= 1 (SDPA beside it) or
+    dense at decode_32k's seq (B 16, S 32768) with each of DECODE_HEADS,
+    window 0 and 8192, lengths >= 1 (SDPA beside it) or
     with a row at length 0; paged on phase 4's arena (64-slot blocks, 16 per
     row, 8 rows, unmapped tails) and on 8 rows of 512 blocks (32768 slots)."""
     from repro_torch.kernels.decode_attention import decode_attention, paged_decode_attention
@@ -751,17 +792,18 @@ def decode_kernel_rows(torch, dtype, gen, timer):
     dname = str(dtype).replace("torch.", "")
     rows = []
 
-    def record(kernel, case, shape, errs, ms, plain_ms, library_ms, composed_ms, bound):
+    def record(kernel, case, shape, errs, wrapper, plain_ms, library_ms, composed_ms, bound):
         err, rel = errs
+        ms = wrapper["ms"]
         rows.append({"kernel": kernel, "case": case, "dtype": dname, "shape": shape, "max_abs_err": err,
                      "max_rel_err": rel, "tolerance": TOLERANCE[dname], "tolerance_rule": DECODE_TOLERANCE_RULE,
-                     "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                     **wrapper, "plain_ms": plain_ms, "library_ms": library_ms,
                      "composed_ms": composed_ms, "composed_of": None if composed_ms is None else "gather+sdpa",
                      "bound_ms": bound[0], "bound_by": bound[1]})
         other = (f"sdpa {library_ms:.4f} ms" if library_ms is not None else
                  f"gather+sdpa {composed_ms:.4f} ms" if composed_ms is not None else "no sdpa (a length-0 row)")
         log(f"  {kernel} {case:58s} {dname:8s} err {err:.3e} (/max|ref| {rel:.2e})  kernel {ms:.4f} ms  "
-            f"plain {plain_ms:.4f} ms  {other}  bound {bound[0]:.5f} ms ({bound[1]})")
+            f"plain {plain_ms:.4f} ms  {other}  bound {bound[0]:.5f} ms ({bound[1]})" + _log_wrapper(wrapper))
 
     B, S = 16, DECODE_S
     for heads_name, (H, Hkv) in DECODE_HEADS.items():
@@ -786,7 +828,7 @@ def decode_kernel_rows(torch, dtype, gen, timer):
                 _check_decode(torch, "decode_attention", case + " (the mean of V)", dname, out[:1, 0], mean_v[None])
             library_ms = None if zero_row else timer(lambda: _sdpa_decode(q, k, v, lengths, window))
             record("decode_attention", case, {"B": B, "H": H, "Hkv": Hkv, "S": S, "D": 128, "window": window},
-                   err, timer(lambda: decode_attention(q, k, v, lengths, window=window)),
+                   err, timer.wrapper(lambda: decode_attention(q, k, v, lengths, window=window)),
                    timer(lambda: decode_attention_ref(q, k, v, lengths, window)), library_ms, None,
                    decode_bound(torch, q, k, lengths, S, window, 0))
         del k, v
@@ -826,7 +868,7 @@ def decode_kernel_rows(torch, dtype, gen, timer):
         zero_row = min(lens) == 0
         record("paged_decode_attention", case,
                {"B": Bp, "H": H, "Hkv": Hkv, "D": 128, "block": BLOCK, "max_blocks": nb, "window": window},
-               err, timer(lambda: paged_decode_attention(q, k, v, tbl, lengths, window=window)),
+               err, timer.wrapper(lambda: paged_decode_attention(q, k, v, tbl, lengths, window=window)),
                timer(lambda: paged_decode_attention_ref(q, k, v, tbl, lengths, window)), None,
                None if zero_row else timer(composed),
                decode_bound(torch, q, k, lengths, nb * BLOCK, window, tbl.numel() * 4))
@@ -852,17 +894,18 @@ def decode_alone_rows(torch, gen, timer):
     out = decode_attention(q, k, v, lengths)
     torch.cuda.synchronize()
     err, rel = _check_decode(torch, "decode_attention", case, "bfloat16", out, _sdpa_decode(q, k, v, lengths, 0))
-    ms = timer(lambda: decode_attention(q, k, v, lengths))
+    wrapper = timer.wrapper(lambda: decode_attention(q, k, v, lengths))
     library_ms = timer(lambda: _sdpa_decode(q, k, v, lengths, 0))
     bound = decode_bound(torch, q, k, lengths, S, 0, 0)
-    log(f"  decode_attention {case} err vs sdpa {err:.3e} (/max|ref| {rel:.2e})  kernel {ms:.4f} ms  sdpa {library_ms:.4f} ms  "
-        f"bound {bound[0]:.5f} ms ({bound[1]}), {2 * k.numel() * 2 / 1e9:.1f} GB of K/V stored")
+    log(f"  decode_attention {case} err vs sdpa {err:.3e} (/max|ref| {rel:.2e})  kernel {wrapper['ms']:.4f} ms  "
+        f"sdpa {library_ms:.4f} ms  bound {bound[0]:.5f} ms ({bound[1]}), {2 * k.numel() * 2 / 1e9:.1f} GB of K/V "
+        "stored" + _log_wrapper(wrapper))
     del k, v
     torch.cuda.empty_cache()
     return [{"kernel": "decode_attention", "case": case, "dtype": "bfloat16",
              "shape": {"B": B, "H": H, "Hkv": Hkv, "S": S, "D": 128, "window": 0}, "max_abs_err": err,
              "max_rel_err": rel, "max_abs_err_against": "sdpa", "tolerance": TOLERANCE["bfloat16"],
-             "tolerance_rule": DECODE_TOLERANCE_RULE, "ms": ms, "plain_ms": None,
+             "tolerance_rule": DECODE_TOLERANCE_RULE, **wrapper, "plain_ms": None,
              "library_ms": library_ms, "composed_ms": None, "bound_ms": bound[0], "bound_by": bound[1]}]
 
 

@@ -10,8 +10,9 @@ an optional sliding window), no mask tensor.  The plain PyTorch versions are
 These functions only launch: they take CUDA tensors and raise on anything
 the kernel does not take (CPU tensors included).  ``kernels.ops`` is the
 dispatch by device.  ``decode_attention.launches`` and
-``paged_decode_attention.launches`` count the calls of each (one call is the
-split pass and its combine).
+``paged_decode_attention.launches`` count the calls of each (one call is
+one launch: the last CTA of a row's splits combines them).  ``split_slots``
+is the rule that cuts a row's valid range into splits.
 """
 from __future__ import annotations
 
@@ -23,14 +24,30 @@ from repro_torch.kernels import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)  # the instances compiled in csrc/decode_attention.cu
-_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+HEADS_PER_CTA = 16  # query heads of one KV head a CTA serves: the bf16 kernel's m16 tile (kRows)
+_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+# the combine's tickets, one int32 per (row, head group), zero between calls: per
+# (device, stream), so that calls on two streams never share one; grown, never shrunk
+_tickets: dict[tuple[int, int], torch.Tensor] = {}
 
 
-def _split_slots(S: int) -> int:
+def split_slots(S: int) -> int:
     """Slots of a row's valid range per CTA: S / 8 rounded up to a power of
     two within [128, 512], so a short cache still spreads over 8 CTAs per
-    row and a long one keeps its partial results few."""
+    row and a long one keeps its partial results few (64 splits a row at
+    decode_32k's S 32768; the last CTA of a row merges them one after
+    another)."""
     return min(512, max(128, 1 << max(0, -(-S // 8) - 1).bit_length()))
+
+
+def _tickets_for(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    """At least n zeroed int32 tickets for launches on ``stream``.  The kernel
+    leaves them at zero, so they are zeroed only when first allocated."""
+    key = (device.index, stream)
+    t = _tickets.get(key)
+    if t is None or t.numel() < n:
+        t = _tickets[key] = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+    return t
 
 
 def _check(kernel: str, q, k, v, lengths, window, tensors: dict) -> None:
@@ -61,20 +78,21 @@ def _check(kernel: str, q, k, v, lengths, window, tensors: dict) -> None:
 def _launch(q, k, v, tbl, lengths, S, block, nb, window) -> torch.Tensor:
     B, _, H, D = q.shape
     Hkv = k.shape[2]
-    slots = _split_slots(S)
+    slots = split_slots(S)
     splits = -(-S // slots)
     out = torch.empty_like(q)
-    # one fp32 (m, l, acc) partial per (row, head, split); the splits a row's range
-    # does not reach are neither written nor read
+    # one fp32 (m, l, acc) partial per (row, head, split), written and read only for the
+    # rows whose range takes more than one split
     part_m = torch.empty(B * H * splits, dtype=torch.float32, device=q.device)
     part_l = torch.empty_like(part_m)
     part_acc = torch.empty(B * H * splits * D, dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
+        tickets = _tickets_for(q.device, stream, B * Hkv * -(-(H // Hkv) // HEADS_PER_CTA))
         fn = build.function("decode_attention", "decode_attention_launch", _ARGTYPES)
         code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), None if tbl is None else tbl.data_ptr(),
                   lengths.data_ptr(), part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(),
-                  out.data_ptr(), B, H, Hkv, S, block, nb, D, int(window), slots,
+                  tickets.data_ptr(), out.data_ptr(), B, H, Hkv, S, block, nb, D, int(window), slots,
                   _DTYPES[q.dtype], stream)
     build.check_launch("decode_attention", code)
     return out

@@ -465,3 +465,131 @@ def test_paged_and_ragged_attention_long_rows_split(cuda, dtype):
     assert torch.isfinite(out).all() and not out[-2:].any() and err <= TOLERANCE[dtype], err
     rel = _query_row_rel_err(out[:-2], want[:-2])  # the padding lanes are zeros: no scale of their own
     assert rel <= TOLERANCE[dtype], rel
+
+
+# ------------------------------- the one-launch flash-decode and the one-wave commit ---
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window", [0, 8192])
+@pytest.mark.parametrize("H,Hkv,D", [
+    (32, 8, 128),  # granite-8b heads, G 4: 12 padded rows of the bf16 tile
+    (64, 8, 128),  # Llama-3 70B heads, G 8
+    (64, 4, 128),  # qwen3-moe heads, G 16: a full tile
+    (16, 4, 64),   # G 4 at D 64
+    (32, 2, 64),   # G 16 at D 64
+])
+def test_decode_attention_mixes_one_split_and_many_split_rows(cuda, dtype, window, H, Hkv, D):
+    """S 16384 (512-slot splits): in one batch a row at length 0 (every split,
+    the mean of V), rows inside one split (the CTA writes the output), rows
+    that end mid-chunk over two or many splits (the last CTA's combine), a
+    full row; with a window of 8192 the long rows start mid-cache.  A second
+    call on the same inputs gives the same output: the tickets reset."""
+    from repro_torch.kernels.decode_attention import decode_attention, split_slots
+    from repro_torch.kernels.ref import decode_attention_ref
+
+    S = 16384
+    assert split_slots(S) == 512
+    gen = torch.Generator(device=cuda).manual_seed(H * D + window)
+    dt = getattr(torch, dtype)
+    lengths = torch.tensor([0, 1, 45, 500, 513, 9000 + 7, 16383, S], dtype=torch.int32, device=cuda)
+    B = lengths.numel()
+    q = torch.randn((B, 1, H, D), generator=gen, device=cuda).to(dt)
+    k, v = (torch.randn((B, S, Hkv, D), generator=gen, device=cuda).to(dt) for _ in range(2))
+    before = decode_attention.launches
+    out = decode_attention(q, k, v, lengths, window=window)
+    again = decode_attention(q, k, v, lengths, window=window)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before + 2
+    assert out.dtype == dt and torch.isfinite(out).all()
+    assert torch.equal(out, again)
+    err = _row_rel_err(out, decode_attention_ref(q, k, v, lengths, window))
+    assert err <= TOLERANCE[dtype], err
+    mean_v = v[0].float().mean(dim=0).repeat_interleave(H // Hkv, dim=0)
+    assert _row_rel_err(out[:1, 0], mean_v[None]) <= TOLERANCE[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_decode_attention_repeats_on_many_split_rows(cuda, dtype):
+    """Paged rows of 512 16-slot blocks (8192 slots: 16 splits of 512) with
+    unmapped tails: two calls in a row give the same output."""
+    from repro_torch.kernels.decode_attention import paged_decode_attention
+    from repro_torch.kernels.ref import paged_decode_attention_ref
+
+    B, H, Hkv, D, block, nb = 4, 64, 8, 128, 16, 512
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    dt = getattr(torch, dtype)
+    q = torch.randn((B, 1, H, D), generator=gen, device=cuda).to(dt)
+    k, v = (torch.randn((B * nb + 1, block, Hkv, D), generator=gen, device=cuda).to(dt) for _ in range(2))
+    tbl = (torch.randperm(B * nb, generator=gen, device=cuda) + 1).reshape(B, nb).to(torch.int32)
+    lengths = torch.tensor([0, 77, 4099, 8192], dtype=torch.int32, device=cuda)
+    tbl[1, 5:] = -1
+    tbl[2, 257:] = -1
+    out = paged_decode_attention(q, k, v, tbl, lengths)
+    again = paged_decode_attention(q, k, v, tbl, lengths)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again) and torch.isfinite(out).all()
+    err = _row_rel_err(out, paged_decode_attention_ref(q, k, v, tbl, lengths))
+    assert err <= TOLERANCE[dtype], err
+
+
+def _commit_chains(seed, B, P, smax):
+    """B rows x P entries of accepted paths: row b's strictly increasing nodes
+    n_j >= j + 1 move C + n_j -> C + 1 + j (entry j's source may be entry
+    j+1's destination), the rest of the row pads with the root's identity
+    copy C -> C, as make_pool_commit_step stages them."""
+    src = torch.empty((B, P), dtype=torch.int32)
+    dst = torch.empty((B, P), dtype=torch.int32)
+    g = torch.Generator().manual_seed(seed)
+    for b in range(B):
+        C = int(torch.randint(0, smax - 2 * P - 1, (1,), generator=g))
+        n = int(torch.randint(0, P + 1, (1,), generator=g))
+        nodes = torch.randperm(2 * P, generator=g)[:n].sort().values + 1
+        src[b] = C
+        dst[b] = C
+        src[b, :n] = C + nodes.to(torch.int32)
+        dst[b, :n] = C + 1 + torch.arange(n, dtype=torch.int32)
+    return src, dst
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,B,P,smax,Hkv,hd,dtype", [
+    (2, 64, 64, 160, 2, 64, "bfloat16"),  # B * P = 4096, the entry cap
+    (1, 8, 4, 96, 8, 128, "bfloat16"),    # L 1
+    (80, 3, 5, 40, 7, 4, "float32"),      # 7 vectors a lane in slices of 2: the last slice is partial
+    (36, 1, 32, 17 * 64, 8, 128, "bfloat16"),  # the 36-layer arena as one row
+])
+def test_commit_kv_at_the_cap_one_layer_and_partial_slices(cuda, L, B, P, smax, Hkv, hd, dtype):
+    from repro_torch.kernels.commit_kv import HOLD, MAX_ENTRIES, commit_kv, commit_schedule
+    from repro_torch.kernels.ref import commit_kv_ref
+
+    dt = getattr(torch, dtype)
+    fv = Hkv * hd * torch.empty((), dtype=dt).element_size() // 16
+    width, threads, _ = commit_schedule(L, B * P, fv, torch.cuda.get_device_properties(cuda).multi_processor_count)
+    assert B * P * width <= HOLD * threads and B * P <= MAX_ENTRIES
+    gen = torch.Generator(device=cuda).manual_seed(L * B + P)
+    k = torch.randn((L, B, smax, Hkv, hd), generator=gen, device=cuda).to(dt)
+    v = torch.randn_like(k)
+    src, dst = (t.to(cuda) for t in _commit_chains(L + P, B, P, smax))
+    want_k, want_v = commit_kv_ref(k.clone(), v.clone(), src, dst)
+    before = commit_kv.launches
+    commit_kv(k, v, src, dst)
+    torch.cuda.synchronize()
+    assert commit_kv.launches == before + 1
+    assert torch.equal(k, want_k) and torch.equal(v, want_v)
+
+
+@pytest.mark.cuda
+def test_commit_kv_all_identity_is_a_no_op(cuda):
+    from repro_torch.kernels.commit_kv import commit_kv
+
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    k = torch.randn((4, 2, 64, 8, 128), generator=gen, device=cuda).to(torch.bfloat16)
+    v = torch.randn_like(k)
+    k0, v0 = k.clone(), v.clone()
+    slots = torch.randint(0, 64, (2, 16), generator=gen, device=cuda).to(torch.int32)
+    commit_kv(k, v, slots, slots.clone())
+    torch.cuda.synchronize()
+    assert torch.equal(k, k0) and torch.equal(v, v0)
