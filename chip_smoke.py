@@ -63,7 +63,20 @@
    (pipelined, then synchronous), launch counts exact, pipelined tokens
    equal to synchronous ones, peak memory, a profile; then the MoE draft cut
    to 2 layers in float32 on the card against the CPU (phase 4b's passes).
-6. Prints the kernels' JSON line, then the card's line, then as the last
+6. Dynamic delayed expansion, the paper's flow, on phases 3-4's models
+   (full-width granite-8b and its draft, the same seeds, bf16): (a) fit
+   LatencyModel to the engine's own timed passes (a one-token draft decode
+   after 16-896 committed tokens, target tree passes of 2, 7 and 15 nodes);
+   (b) label the roots of 2 prompts with Eq. 3 (collect_traces, specinfer,
+   the action grid of examples/train_selector.py, s = 1); (c) train the
+   selector on the card (train_selector, Eq. 12); (d) one stream, 32
+   tokens, the best static action against NeuralSelector; (e) phase 4's
+   traffic through BatchedSpeculativeEngine under NeuralSelector, then
+   under a content-keyed selector whose steps mix actions; (f)
+   AnalyticSelector on one request of 8 tokens, and a pooled peek against
+   the single-stream peek at the same prefix (pools unchanged bit for bit).
+   Launch counts are checked in every run as in phases 3-5.
+7. Prints the kernels' JSON line, then the card's line, then as the last
    line {"ok": true, "device": {...}}.  With ``--json-dir DIR`` it also
    writes the per-shape kernel table and a summary there as JSON.
 
@@ -72,6 +85,7 @@ Any failure raises: there is no CPU path and no fallback to a plain version.
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import statistics
 import subprocess
@@ -909,9 +923,12 @@ def decode_alone_rows(torch, gen, timer):
              "library_ms": library_ms, "composed_ms": None, "bound_ms": bound[0], "bound_by": bound[1]}]
 
 
-def _run_engine(torch, eng, prompts, max_new, n_layers):
+def _run_engine(torch, eng, prompts, max_new, n_layers, actions=None):
     """Serve the prompts with the launch count set to 0 just before and
-    read just after; check it equals masked passes x layers."""
+    read just after; check it equals masked passes x layers (prefills,
+    draft and target passes, peeks).  ``actions``: the ActionLog of the
+    engine's selector, whose deepest tree bounds the block efficiency (else
+    the engine's static action does)."""
     from repro_torch.kernels.tree_attention import tree_attention
 
     vocab = eng.tc.vocab
@@ -932,9 +949,10 @@ def _run_engine(torch, eng, prompts, max_new, n_layers):
         if len(out) != max_new or not all(0 <= t < vocab for t in out):
             raise RuntimeError(f"bad output tokens: {out}")
     be = c["accepted"] / max(c["blocks"], 1) + 1
-    K, L1, L2 = eng.ecfg.K, eng.ecfg.L1, eng.ecfg.L2
-    if not 1.0 <= be <= 1 + L1 + L2:
-        raise RuntimeError(f"block efficiency {be} outside [1, {1 + L1 + L2}]")
+    deepest = max(a[1] + a[2] for acts in actions.by_step.values() for a in acts) if actions else \
+        eng.ecfg.L1 + eng.ecfg.L2
+    if not 1.0 <= be <= 1 + deepest:
+        raise RuntimeError(f"block efficiency {be} outside [1, {1 + deepest}]")
     return outs, wall, launches, be
 
 
@@ -1117,9 +1135,12 @@ def _launch_counters():
             "decode_attention": decode_attention, "paged_decode_attention": paged_decode_attention}
 
 
-def _serve_batched(torch, eng, prompts, max_new, seeds, layers):
+def _serve_batched(torch, eng, prompts, max_new, seeds, layers, actions=None, need_both=True):
     """Serve the requests with every launch count set to 0 just before and
-    read just after; check each equals its passes x layers."""
+    read just after; check each equals its passes x layers.  ``actions``
+    (an ActionLog the engine's selector writes) gives each step's trunk and
+    branch depths; without it every step takes the engine's static action.
+    ``need_both``: the padded and the ragged tree pass must both have run."""
     counters = _launch_counters()
     torch.cuda.synchronize()
     for fn in counters.values():
@@ -1142,22 +1163,29 @@ def _serve_batched(torch, eng, prompts, max_new, seeds, layers):
     c = eng.counters
     n_tgt, n_drf = layers
     steps = c["target_calls"]
+    # each step's trunk steps (the deepest L1 of its batch) and branch steps (the deepest L2)
+    levels = actions.levels() if actions is not None else [(eng.ecfg.L1, eng.ecfg.L2)] * steps
+    if len(levels) != steps:
+        raise RuntimeError(f"the selector chose actions for {len(levels)} steps; the engine ran {steps}")
+    trunk, branch = sum(lv[0] for lv in levels), sum(lv[1] for lv in levels)
     expected = {
-        # the admission prefills (target + draft) and the two branch steps of every step
-        "tree_attention": len(prompts) * (n_tgt + n_drf) + n_drf * 2 * steps,
-        # ingest and the two trunk steps of every step, and the padded target passes
-        "paged_tree_attention": n_drf * 3 * steps + n_tgt * c["padded_calls"],
+        # the admission prefills (target + draft) and the branch steps of every step
+        "tree_attention": len(prompts) * (n_tgt + n_drf) + n_drf * branch,
+        # ingest and the trunk steps of every step, and the padded target passes
+        "paged_tree_attention": n_drf * (steps + trunk) + n_tgt * c["padded_calls"],
         "ragged_paged_tree_attention": n_tgt * c["ragged_calls"],
         "commit_kv": c["commit_calls"],
         **{name: 0 for name in NO_ENGINE_PATH},
     }
-    if c["draft_calls"] != 5 * steps or c["commit_calls"] != steps:
+    if c["draft_calls"] != steps + trunk + branch or c["commit_calls"] != steps:
         raise RuntimeError(f"draft calls {c['draft_calls']}, commits {c['commit_calls']} for {steps} steps "
-                           "of (2, 2, 2): expected 5 and 1 per step")
+                           f"of {trunk} trunk and {branch} branch steps: expected {steps + trunk + branch} "
+                           f"and {steps}")
     for name, want in expected.items():
-        if launches[name] != want or (launches[name] == 0 and name not in NO_ENGINE_PATH):
+        if launches[name] != want or (launches[name] == 0 and name not in NO_ENGINE_PATH + (
+                () if need_both else ("ragged_paged_tree_attention",))):
             raise RuntimeError(f"{name} launched {launches[name]} times, expected {want} (passes x layers)")
-    if not (c["padded_calls"] and c["ragged_calls"]):
+    if need_both and not (c["padded_calls"] and c["ragged_calls"]):
         raise RuntimeError(f"padded {c['padded_calls']} and ragged {c['ragged_calls']} tree passes: both must run")
     outs = {rid: eng.finished.pop(rid) for rid in rids}
     vocab = eng.tc.vocab
@@ -1466,6 +1494,334 @@ def phase_moe(torch):
     return results, launches
 
 
+# ------------------------------------------- phase 6: dynamic delayed expansion ---
+
+NDE_ACTIONS = [(1, 3, 0), (2, 1, 1), (2, 2, 2), (4, 1, 1)]  # the grid of examples/train_selector.py
+NDE_FIT_LENGTHS = (16, 256, 512, 896)  # committed tokens of the timed passes, inside the 1024-slot ring
+NDE_FIT_TREES = ((1, 1, 0), (2, 2, 2), (4, 2, 3))  # trees of 2, 7 and 15 nodes
+
+
+def nde_configs():
+    """Phases 3-4's pair: full-width granite-8b and its make_draft_cfg draft."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import make_draft_cfg
+
+    tcfg = get_config("granite-8b")
+    return tcfg, make_draft_cfg(tcfg)
+
+
+class ActionLog:
+    """Wraps a selector: records each call's action by the engine's block
+    count at the call (the calls of one batched step share it; the next step
+    sees a larger one) and sums the Eq. 11 time ``latency`` models for it,
+    as examples/train_selector.py prices a run."""
+
+    def __init__(self, selector, latency):
+        self.selector, self.latency = selector, latency
+        self.by_step: dict[int, list] = {}
+        self.modelled_s = 0.0
+
+    def __call__(self, stream, engine):
+        a = tuple(self.selector(stream, engine))
+        self.by_step.setdefault(engine.counters["blocks"], []).append(a)
+        self.modelled_s += self.latency.action_time(len(stream["committed"]), *a)
+        return a
+
+    def levels(self):
+        """Each step's (trunk steps, branch steps): its batch's deepest L1 and L2."""
+        return [(max(a[1] for a in acts), max(a[2] for a in acts)) for _, acts in sorted(self.by_step.items())]
+
+    def histogram(self):
+        return dict(sorted(collections.Counter(str(a) for acts in self.by_step.values() for a in acts).items()))
+
+    def mixed_steps(self):
+        return sum(len(set(acts)) > 1 for acts in self.by_step.values())
+
+
+def _delayed_parents(K, L1, L2):
+    """Parent array of a (K, L1, L2)-delayed tree in the engine's node order."""
+    parent, node = [-1], 0
+    for _ in range(L1):
+        parent.append(node)
+        node = len(parent) - 1
+    tips = [node] * K
+    for _ in range(L2):
+        for k in range(K):
+            parent.append(tips[k])
+            tips[k] = len(parent) - 1
+    return parent
+
+
+def _walls(torch, fns, rounds=11):
+    """Median host time (s) of each of ``fns`` from a synchronised card to a
+    synchronised card (what the engine waits for a pass), after two calls
+    of each.  The calls go round-robin, one of each a round, so that a slow
+    spell of the shared host spreads over every reading."""
+    for fn in fns:
+        fn()
+        fn()
+    times = [[] for _ in fns]
+    for _ in range(rounds):
+        for fn, ts in zip(fns, times):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append(time.perf_counter() - t0)
+    return [statistics.median(ts) for ts in times]
+
+
+def fit_latency(torch, eng, smi):
+    """Phase 6a: fit LatencyModel (Eq. 11's affine pass times) to the
+    engine's own passes on the card: a one-token draft decode after l
+    committed tokens, t_q(l + 1) = t_q_base + t_q_per_tok (l + 1), and a
+    target tree pass of n + 1 nodes, t = t_p_base + t_p_per_tok (l + 1 + n)
+    + t_p_per_tree_tok n, by least squares over the medians of 11 timed
+    calls of each."""
+    import numpy as np
+
+    from repro_torch.core.delayed import LatencyModel
+    from repro_torch.core.trees import tree_ancestor_mask
+
+    rng = np.random.default_rng(6)
+    vocab = eng.tc.vocab
+    q_cases, p_cases = [], []  # (l + 1, closure), (l + 1, n, closure)
+    for length in NDE_FIT_LENGTHS:
+        stream = eng.new_stream(rng.integers(0, vocab, size=length + 1).tolist())  # caches hold `length`
+        tok = [int(rng.integers(0, vocab))]
+        q_cases.append((length + 1, lambda st=stream, t=tok: eng._draft_decode(st["dcache"], t)))
+        for K, L1, L2 in NDE_FIT_TREES:
+            parent = np.asarray(_delayed_parents(K, L1, L2))
+            anc = tree_ancestor_mask(parent)
+            toks = rng.integers(0, vocab, size=len(parent))
+            p_cases.append((length + 1, len(parent) - 1,
+                            lambda st=stream, t=toks, a=anc: eng._target_pass_tree(st["tcache"], t, a)))
+    walls = _walls(torch, [c[-1] for c in q_cases + p_cases])
+    q_rows = [(l, t) for (l, _), t in zip(q_cases, walls)]
+    p_rows = [(l, n, t) for (l, n, _), t in zip(p_cases, walls[len(q_cases):])]
+    del q_cases, p_cases
+    xq = np.asarray([[1.0, l] for l, _ in q_rows])
+    yq = np.asarray([t for _, t in q_rows])
+    xp = np.asarray([[1.0, l + n, n] for l, n, _ in p_rows])
+    yp = np.asarray([t for _, _, t in p_rows])
+    cq = np.linalg.lstsq(xq, yq, rcond=None)[0]
+    cp = np.linalg.lstsq(xp, yp, rcond=None)[0]
+    lat = LatencyModel(float(cq[0]), float(cq[1]), float(cp[0]), float(cp[1]), float(cp[2]))
+    res = np.concatenate([xq @ cq - yq, xp @ cp - yp])
+    ys = np.concatenate([yq, yp])
+    fit = {"t_q_base_ms": lat.t_q_base * 1e3, "t_q_per_tok_us": lat.t_q_per_tok * 1e6,
+           "t_p_base_ms": lat.t_p_base * 1e3, "t_p_per_tok_us": lat.t_p_per_tok * 1e6,
+           "t_p_per_tree_tok_ms": lat.t_p_per_tree_tok * 1e3,
+           "residual_rms_ms": float(np.sqrt(np.mean(res ** 2))) * 1e3,
+           "residual_max_rel": float(np.max(np.abs(res) / ys)),
+           "draft_decode_ms": {str(l): t * 1e3 for l, t in q_rows},
+           "target_tree_pass_ms": {f"{l}+{n}": t * 1e3 for l, n, t in p_rows}, "nvidia_smi": smi}
+    for l, t in q_rows:
+        log(f"  draft decode of 1 token after {l - 1:4d} tokens: {t * 1e3:8.3f} ms")
+    for l, n, t in p_rows:
+        log(f"  target tree pass of {n + 1:2d} nodes after {l - 1:4d} tokens: {t * 1e3:8.3f} ms")
+    log(f"  LatencyModel fitted on {smi}: t_q(l) = {fit['t_q_base_ms']:.4f} ms + {fit['t_q_per_tok_us']:.4f} us x l; "
+        f"t_p(l) = {fit['t_p_base_ms']:.4f} ms + {fit['t_p_per_tok_us']:.4f} us x l, "
+        f"+ {fit['t_p_per_tree_tok_ms']:.4f} ms a tree token; residual rms {fit['residual_rms_ms']:.4f} ms, "
+        f"max {100 * fit['residual_max_rel']:.2f} % of a reading")
+    if not all(np.isfinite(list(v for v in fit.values() if isinstance(v, float)))):
+        raise RuntimeError(f"latency fit is not finite: {fit}")
+    return lat, fit
+
+
+def _peek_check(torch, tcfg, tp, dcfg, dp, prompt, sampling):
+    """Phase 6f's second half: one pooled peek (a pool row gathered to a
+    dense copy) against the single-stream peek at the same committed prefix;
+    the pools must come out bit for bit as they were."""
+    import numpy as np
+
+    from repro_torch.serving.batch_engine import BatchedSpeculativeEngine
+    from repro_torch.serving.engine import EngineConfig, SpeculativeEngine
+
+    ecfg = EngineConfig("specinfer", 2, 2, 2, 1024, seed=3)
+    beng = BatchedSpeculativeEngine(tcfg, tp, dcfg, dp, ecfg, sampling, n_slots=1, paged=True, block_size=64,
+                                    pipeline=False)
+    beng.submit(prompt, max_new=16, seed=3)
+    beng.step()
+    bstream = next(iter(beng.streams.values()))
+    single = SpeculativeEngine(tcfg, tp, dcfg, dp, ecfg, sampling)
+    sstream = single.new_stream(list(bstream["committed"]))
+    before = [t.clone() for pool in (beng.tpool, beng.dpool) for t in pool.cache["attn"].values()]
+    ctx = [int(bstream["committed"][0])]
+    diffs = {}
+    for name, ctx_ in (("target", []), ("target +1", ctx), ("draft", []), ("draft +1", ctx)):
+        kind = name.split()[0]
+        pooled = getattr(beng, f"peek_{kind}_dist")(bstream, ctx_)
+        alone = getattr(single, f"peek_{kind}_dist")(sstream, ctx_)
+        for d in (pooled, alone):
+            if not (np.isfinite(d).all() and abs(float(d.sum()) - 1.0) < 1e-3):
+                raise RuntimeError(f"peek {name}: not a distribution (sum {d.sum()})")
+        diffs[name] = float(np.abs(pooled - alone).max())
+    after = [t for pool in (beng.tpool, beng.dpool) for t in pool.cache["attn"].values()]
+    if not all(torch.equal(a, b) for a, b in zip(before, after)):
+        raise RuntimeError("a pooled peek changed the pool")
+    log(f"  pooled peek vs single-stream peek after {len(bstream['committed'])} committed tokens, max abs diff: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in diffs.items()) + "; pools unchanged bit for bit")
+    return diffs
+
+
+def phase_nde(torch, smi):
+    log("== phase 6: dynamic delayed expansion on full-width granite-8b + draft, bf16")
+    import gc
+
+    import numpy as np
+
+    from repro_torch.core.selector import FixedSpace, SelectorConfig
+    from repro_torch.kernels.tree_attention import tree_attention
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving.batch_engine import BatchedSpeculativeEngine
+    from repro_torch.serving.engine import EngineConfig, SamplingParams, SpeculativeEngine
+    from repro_torch.serving.nde import AnalyticSelector, NeuralSelector, StaticSelector
+    from repro_torch.training.selector_train import best_static_action, collect_traces, train_selector
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tcfg, dcfg = nde_configs()
+    tp = init_params(tcfg, torch.Generator(device="cuda").manual_seed(0))
+    dp = init_params(dcfg, torch.Generator(device="cuda").manual_seed(1))
+    layers = (tcfg.n_layers, dcfg.n_layers)
+    sampling = SamplingParams(1.0, 1.0)
+    rng = np.random.default_rng(7)
+    results = {}
+
+    def single(seed, selector=None, action=(2, 2, 2)):
+        return SpeculativeEngine(tcfg, tp, dcfg, dp, EngineConfig("specinfer", *action, 1024, seed=seed),
+                                 sampling, selector=selector)
+
+    single(9).generate(rng.integers(0, tcfg.vocab, size=8).tolist(), max_new=8)  # warm-up, not measured
+
+    log("-- 6a: the latency model, fitted on the card")
+    t0 = time.perf_counter()
+    lat, results["latency_fit"] = fit_latency(torch, single(9), smi)
+    results["latency_fit"]["seconds"] = time.perf_counter() - t0
+
+    log(f"-- 6b: Eq. 3 labels (collect_traces), specinfer, actions {NDE_ACTIONS}, s = 1")
+    t0 = time.perf_counter()
+    prompts = [rng.integers(0, tcfg.vocab, size=8).tolist() for _ in range(2)]
+    parts, label_launches = [], 0
+    for i, prompt in enumerate(prompts):
+        eng = single(20 + i)
+        torch.cuda.synchronize()
+        tree_attention.launches = 0
+        part = collect_traces(eng, [prompt], NDE_ACTIONS, lat, tokens_per_prompt=20, stride=4, s=1, seed=i)
+        torch.cuda.synchronize()
+        c = eng.counters
+        want = layers[0] * (1 + c["target_calls"]) + layers[1] * (1 + c["draft_calls"])
+        if tree_attention.launches != want:
+            raise RuntimeError(f"collect_traces: tree_attention launched {tree_attention.launches} times, "
+                               f"expected {want} (masked passes, peeks included, x layers)")
+        label_launches += want
+        if part["eff"].shape[0] < 3:
+            raise RuntimeError(f"prompt {i}: {part['eff'].shape[0]} roots labelled, expected at least 3")
+        parts.append(part)
+    traces = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+    for k, v in traces.items():
+        if not np.isfinite(v).all():
+            raise RuntimeError(f"traces[{k!r}] holds non-finite values")
+    if not ((traces["eff"] >= 1.0) & (traces["eff"] <= 1 + np.asarray([a[1] + a[2] for a in NDE_ACTIONS]))).all():
+        raise RuntimeError(f"an Eq. 3 label lies outside [1, 1 + L1 + L2]: {traces['eff']}")
+    log(f"  {traces['eff'].shape[0]} roots ({', '.join(str(p['eff'].shape[0]) for p in parts)} a prompt) x "
+        f"{len(NDE_ACTIONS)} actions in {time.perf_counter() - t0:.2f} s; tree_attention launches {label_launches}")
+    log("  eff (E[tau + 1] by Eq. 3) | time (ms, Eq. 11) per action " + " ".join(map(str, NDE_ACTIONS)))
+    for r in range(traces["eff"].shape[0]):
+        log("    root %2d: " % r + " ".join(f"{e:6.3f}" for e in traces["eff"][r]) + "  | "
+            + " ".join(f"{1e3 * t:8.3f}" for t in traces["time"][r]))
+    base = best_static_action(traces)
+    results["traces"] = {"roots": int(traces["eff"].shape[0]), "eff": traces["eff"].tolist(),
+                         "time_ms": (1e3 * traces["time"]).tolist(), "best_static_action": list(NDE_ACTIONS[base]),
+                         "launches": label_launches, "seconds": time.perf_counter() - t0}
+
+    log("-- 6c: selector training (train_selector, Eq. 12) on the card")
+    t0 = time.perf_counter()
+    scfg = SelectorConfig(hidden_p=tcfg.d_model, hidden_q=dcfg.d_model, space=FixedSpace(NDE_ACTIONS))
+    params, losses = train_selector(traces, scfg, steps=150, batch=16, lam=0.3, device="cuda")
+    torch.cuda.synchronize()
+    devices = {str(t.device) for layer in params.values() for t in layer.values()}
+    if not (np.isfinite(losses[0]) and np.isfinite(losses[-1])) or devices != {"cuda:0"}:
+        raise RuntimeError(f"training: loss {losses[0]} -> {losses[-1]}, parameters on {devices}")
+    log(f"  hidden_p {scfg.hidden_p}, hidden_q {scfg.hidden_q}, dropout {scfg.dropout}, 150 steps of 16: "
+        f"loss {losses[0]:.4f} -> {losses[-1]:.4f} in {time.perf_counter() - t0:.2f} s, parameters on {devices}")
+    results["training"] = {"first_loss": losses[0], "last_loss": losses[-1], "steps": len(losses),
+                           "seconds": time.perf_counter() - t0}
+
+    log(f"-- 6d: single stream, best static action {NDE_ACTIONS[base]} against NeuralSelector, 32 tokens")
+    prompt = rng.integers(0, tcfg.vocab, size=8).tolist()
+    single_launches = label_launches
+    results["single"] = {}
+    for name, sel in (("static", StaticSelector(*NDE_ACTIONS[base])),
+                      ("nde", NeuralSelector(params, scfg, lat, sampling))):
+        alog = ActionLog(sel, lat)
+        eng = single(1, alog)
+        outs, wall, launches, be = _run_engine(torch, eng, [prompt], 32, layers, alog)
+        single_launches += launches
+        c = eng.counters
+        produced = c["accepted"] + c["blocks"]
+        r = {"tokens_per_s": 32 / wall, "block_efficiency": be, "modelled_tokens_per_s": produced / alog.modelled_s,
+             "actions": alog.histogram(), "steps": c["blocks"], "launches": launches, "wall_s": wall}
+        results["single"][name] = r
+        log(f"  {name:6s}: {r['tokens_per_s']:.3f} tok/s, block_efficiency {be:.4f}, modelled "
+            f"{r['modelled_tokens_per_s']:.3f} tok/s, {c['blocks']} steps, actions {r['actions']}, "
+            f"tree_attention launches {launches}; {outs[0]}")
+
+    log(f"-- 6e: continuous batching under NeuralSelector, {N_SLOTS} rows, {N_REQUESTS} requests, pipelined")
+    prng = np.random.default_rng(4)  # phase 4's traffic
+    bprompts = [prng.integers(0, tcfg.vocab, size=8).tolist() for _ in range(N_REQUESTS)]
+    max_new = [16 + (32 * i) // (N_REQUESTS - 1) for i in range(N_REQUESTS)]
+    seeds = [100 + i for i in range(N_REQUESTS)]
+
+    def mixed(stream, engine):
+        """A content-keyed selector of mixed actions: every step mixes them."""
+        return NDE_ACTIONS[(stream["rid"] + len(stream["committed"])) % len(NDE_ACTIONS)]
+
+    batched_runs = []
+    results["batched"] = {}
+    for name, sel in (("nde", NeuralSelector(params, scfg, lat, sampling)), ("mixed", mixed)):
+        alog = ActionLog(sel, lat)
+        eng = BatchedSpeculativeEngine(tcfg, tp, dcfg, dp, EngineConfig("specinfer", 2, 2, 2, 1024), sampling,
+                                       selector=alog, n_slots=N_SLOTS, paged=True, block_size=64, pipeline=True)
+        _, r = _serve_batched(torch, eng, bprompts, max_new, seeds, layers, actions=alog, need_both=False)
+        r.update(actions=alog.histogram(), mixed_steps=alog.mixed_steps())
+        batched_runs.append(r["launches"])
+        results["batched"][name] = r
+        log(f"  {name:5s}: {r['tokens']} tokens in {r['wall_s']:.4f} s = {r['tokens_per_s']:.3f} tok/s aggregate, "
+            f"per-stream median {r['per_stream_tokens_per_s_median']:.3f} tok/s, block_efficiency "
+            f"{r['block_efficiency']:.4f}, actions {r['actions']}, steps {r['steps']} of which "
+            f"{r['mixed_steps']} mixed actions (padded {r['padded_calls']}, ragged {r['ragged_calls']}), "
+            f"pad_fraction {r['pad_fraction']:.4f}, ahead {r['pipeline_ahead']} stalls {r['pipeline_stalls']}, "
+            f"launches {r['launches']}")
+    if results["batched"]["mixed"]["mixed_steps"] < 1:
+        raise RuntimeError("the content-keyed selector never mixed actions within a step")
+    if not sum(r["ragged_paged_tree_attention"] for r in batched_runs):
+        raise RuntimeError("no ragged tree pass ran under mixed actions")
+
+    log("-- 6f: AnalyticSelector, actions (1,1,0) and (2,1,1), one request of 8 tokens")
+    alog = ActionLog(AnalyticSelector([(1, 1, 0), (2, 1, 1)], lat, "specinfer", s=1, seed=0), lat)
+    eng = single(2, alog)
+    outs, wall, launches, be = _run_engine(torch, eng, [prompt], 8, layers, alog)
+    single_launches += launches
+    results["analytic"] = {"tokens_per_s": 8 / wall, "block_efficiency": be, "actions": alog.histogram(),
+                           "launches": launches, "steps": eng.counters["blocks"]}
+    log(f"  {8 / wall:.3f} tok/s (peeks included), block_efficiency {be:.4f}, actions {alog.histogram()}, "
+        f"target calls {eng.counters['target_calls']}, draft calls {eng.counters['draft_calls']} (peeks included), "
+        f"tree_attention launches {launches}; {outs[0]}")
+    results["peek_max_abs_diff"] = _peek_check(torch, tcfg, tp, dcfg, dp, prompt, sampling)
+    results["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    results["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 6 took {results['seconds']:.1f} s; max_memory_allocated "
+        f"{results['max_memory_allocated'] / 2**30:.3f} GiB")
+    del tp, dp, eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return results, single_launches, batched_runs
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--json-dir", type=Path, help="also write the result tables there as JSON")
@@ -1498,13 +1854,14 @@ def main():
     moe_ref_err = max(
         phase_reference(torch, moe_draft32, 6, "phase 5b: the MoE draft cut to 2 layers"),
         phase_batched_reference(torch, moe_draft32, 7, "phase 5c: batched passes of the MoE draft cut to 2 layers"))
+    nde, nde_single_launches, nde_batched_runs = phase_nde(torch, smi)
 
-    # each kernel's launches over every main-path run (phases 3 and 5 single stream, both
-    # runs of phases 4 and 5); its times at the hottest shape of its path, in bf16
+    # each kernel's launches over every main-path run (phases 3, 5 and 6 single stream, both
+    # runs of phases 4, 5 and 6e); its times at the hottest shape of its path, in bf16
     runs = [batched["pipelined"]["launches"], batched["sync"]["launches"],
-            moe["pipelined"]["launches"], moe["sync"]["launches"]]
+            moe["pipelined"]["launches"], moe["sync"]["launches"], *nde_batched_runs]
     total = {name: sum(r[name] for r in runs) for name in runs[0]}
-    total["tree_attention"] += launches + moe_launches
+    total["tree_attention"] += launches + moe_launches + nde_single_launches
     headline = {"tree_attention": "target tree pass", "paged_tree_attention": "paged target tree pass",
                 "ragged_paged_tree_attention": "ragged target pass, 8 owners",
                 "commit_kv": "36-layer arena, B*P = 32, chains + trash padding",
@@ -1546,7 +1903,7 @@ def main():
     summary = {"main_path": main_path, "draft_card_vs_cpu_rel_err": ref_err, "batched": batched,
                "in_engine_device_time_per_call": in_engine,
                "batched_draft_card_vs_cpu_rel_err": batched_ref_err, "moe": moe,
-               "moe_draft_card_vs_cpu_rel_err": moe_ref_err, "nvidia_smi": smi,
+               "moe_draft_card_vs_cpu_rel_err": moe_ref_err, "nde": nde, "nvidia_smi": smi,
                "seconds": time.perf_counter() - t_start}
     if args.json_dir:
         args.json_dir.mkdir(parents=True, exist_ok=True)

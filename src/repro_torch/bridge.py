@@ -34,6 +34,15 @@ def params_from_jax(np_params: dict, device="cuda", dtype: torch.dtype = torch.f
     return {k: conv(k, v) for k, v in np_params.items()}
 
 
+def selector_params_from_jax(np_params: dict, device="cuda") -> dict:
+    """The port's selector parameters (core/selector.py) from the JAX
+    package's, given as numpy.  Both keep the dense layers as
+    ``{"w": (din, dout), "b": (dout,)}`` (``x @ w + b``; an ``nn.Linear``
+    weight would be the transpose), so each leaf is copied as float32."""
+    return {name: {k: torch.as_tensor(np.array(a, np.float32), device=device) for k, a in layer.items()}
+            for name, layer in np_params.items()}
+
+
 def cache_to_numpy(cache: dict) -> dict:
     """A cache dict as numpy (floats through float32), for comparing whole
     caches with the JAX package's."""

@@ -951,11 +951,11 @@ int launch(K kernel, C combine_kernel, const Params& p, int n_tile_slots, cudaSt
   const bool paged = p.tbl != nullptr;
   const int bytes = make_layout(sizeof(scalar_t), D, kSlots, p.split_slots, p.block, paged).total;
   if (bytes > 227 * 1024) return cudaErrorInvalidValue;
-  static int configured = 48 * 1024;  // per instance: what the attribute allows so far
-  if (bytes > configured) {
+  // set on every launch past the 48 KB default: the attribute holds for the
+  // current device only, and costs little
+  if (bytes > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (e != cudaSuccess) return (int)e;
-    configured = bytes;
   }
   const dim3 grid(n_tile_slots, p.Hkv * p.n_hg, p.n_split);
   kernel<<<grid, kThreads, bytes, stream>>>(p);

@@ -36,8 +36,7 @@ are rewritten by the next ingest before any mask admits them
 (models/cache.py, the frontier invariant).
 
 Not ported here: the replay strategy of recurrent targets (ROADMAP queue 1
-item 9), sharding over a mesh (item 8), on-device verification (item 11)
-and the ``peek_*_dist`` oracles of the analytic selector (item 12).
+item 9), sharding over a mesh (item 8) and on-device verification (item 11).
 """
 from __future__ import annotations
 
@@ -49,7 +48,7 @@ import torch
 
 from repro_torch.core.trees import DraftTree
 from repro_torch.core.verify import get_verifier
-from repro_torch.models.cache import PagedCachePool, fork_streams, make_cache_pool
+from repro_torch.models.cache import PagedCachePool, fork_streams, gather_streams, make_cache_pool
 from repro_torch.models.transformer import forward, init_cache
 from repro_torch.sampling import warp_logits
 from repro_torch.serving.engine import (
@@ -821,6 +820,34 @@ class BatchedSpeculativeEngine:
         if ev["done"]:
             st["done"] = True
         return ev
+
+    # ------------------------------------------------------ distribution peeks
+
+    def _peek(self, cfg, params, pool, slot: int, toks: list[int]) -> np.ndarray:
+        """Score ``toks`` against one pool row WITHOUT mutating the pool:
+        gather the row to a dense 1-row cache (new tensors, paged rows come
+        back dense), decode on it (the pass writes K/V into that copy only),
+        discard it.  The pooled form of the single-stream peek oracles; it
+        reads the row as the scheduling boundary leaves it (where selectors
+        run: a step begun ahead has already ingested the draft delta)."""
+        sub = gather_streams(pool.cache, [slot])
+        logits, _, _ = forward(params, cfg, torch.as_tensor(np.asarray(toks, np.int64)[None], device=self.device),
+                               mode="decode", cache=sub)
+        return _host(self._warp(logits[0]))[-1]
+
+    def peek_draft_dist(self, stream, ctx: list[int]) -> np.ndarray:
+        """q(. | committed + ctx) for a pooled stream, without mutating it.
+
+        The selector that calls it draws from its OWN rng, shared across the
+        streams it serves: its decisions are deterministic per arrival
+        order, but not reproduced by independent single-stream runs."""
+        toks = list(stream["draft_delta"]) + list(ctx)
+        return self._peek(self.dc, self.dp, self.dpool, stream["slot"], toks)
+
+    def peek_target_dist(self, stream, ctx: list[int]) -> np.ndarray:
+        """p(. | committed + ctx) for a pooled stream, without mutating it."""
+        toks = [stream["pending"]] + list(ctx)
+        return self._peek(self.tc, self.tp, self.tpool, stream["slot"], toks)
 
     # ----------------------------------------------------------------- run ---
 

@@ -593,3 +593,118 @@ def test_commit_kv_all_identity_is_a_no_op(cuda):
     commit_kv(k, v, slots, slots.clone())
     torch.cuda.synchronize()
     assert torch.equal(k, k0) and torch.equal(v, v0)
+
+
+def _tree_smem_bytes(dtype, D, split_slots):
+    """Dynamic shared memory of a dense tree-body launch: the host's copy of
+    ``make_layout`` in csrc/tree_attention_body.cuh."""
+    elt = 2 if dtype == "bfloat16" else 4
+    slots = 2 * (4 if elt == 2 else 1)  # stages x chunks a stage
+    a16 = lambda x: (x + 15) & ~15
+    n_chunk = split_slots // 32
+    total = a16(slots * 2 * 32 * (D + 16 // elt) * elt)
+    if elt == 4:
+        total += a16(8 * 16 * D * 4) + a16(8 * 16 * 32 * 4)
+    return total + a16(32 * n_chunk * 4) + a16((n_chunk // 32 + 1) * 4 + n_chunk * 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_tree_attention_above_48kb_of_shared_memory(cuda, dtype):
+    """Launches past the 48 KB default set the shared-memory attribute on
+    every launch (it holds for the current device only): the largest
+    layout, a smaller one, then the largest again, each against the plain
+    version."""
+    from repro_torch.kernels.tree_attention import launch_schedule
+
+    dt = getattr(torch, dtype)
+    for S, D in ((4096, 128), (64, 64), (4096, 128)):
+        _, _, split_slots, _ = launch_schedule(32, 8, S)
+        assert _tree_smem_bytes(dtype, D, split_slots) > 48 * 1024
+        gen = torch.Generator(device=cuda).manual_seed(S + D)
+        q, k, v = (torch.randn(shape, generator=gen, device=cuda).to(dt)
+                   for shape in ((1, 7, 32, D), (1, S, 8, D), (1, S, 8, D)))
+        mask = torch.rand((1, 7, S), generator=gen, device=cuda) < 0.5
+        before = tree_attention.launches
+        out = tree_attention(q, k, v, mask)
+        torch.cuda.synchronize()
+        assert tree_attention.launches == before + 1
+        err = (out.float() - tree_attention_ref(q, k, v, mask).float()).abs().max().item()
+        assert err <= TOLERANCE[dtype], (S, D, err)
+
+
+def _selector_case(n=24):
+    import numpy as np
+
+    from repro_torch.core.selector import FixedSpace, SelectorConfig
+
+    actions = [(1, 3, 0), (2, 1, 1), (2, 2, 2), (4, 1, 1)]
+    cfg = SelectorConfig(hidden_p=4096, hidden_q=2048, dropout=0.0, space=FixedSpace(actions))
+    rng = np.random.default_rng(0)
+    traces = {"h_prev_p": rng.normal(size=(n, 4096)), "h_prev_q": rng.normal(size=(n, 2048)),
+              "h_cur_q": rng.normal(size=(n, 2048)), "scalars": rng.normal(size=(n, 11)),
+              "eff": rng.uniform(1, 4, size=(n, 4)), "time": rng.uniform(1e-3, 5e-3, size=(n, 4))}
+    return cfg, {k: v.astype(np.float32) for k, v in traces.items()}
+
+
+@pytest.fixture
+def no_tf32():
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32 = old
+
+
+@pytest.mark.cuda
+def test_selector_on_the_card_matches_the_cpu(cuda, no_tf32):
+    from repro_torch.core.selector import init_selector, select_action, selector_logits
+    from repro_torch.training.optim import tree_map
+
+    cfg, traces = _selector_case()
+    params = init_selector(cfg, torch.Generator().manual_seed(0), "cpu")
+    gpu = tree_map(lambda p: p.to(cuda), params)
+    feats = [torch.as_tensor(traces[k]) for k in ("h_prev_p", "h_prev_q", "h_cur_q", "scalars")]
+    want = selector_logits(params, *feats)
+    got = selector_logits(gpu, *(f.to(cuda) for f in feats))
+    assert got.device.type == "cuda"
+    assert (got.cpu() - want).abs().max().item() <= 1e-5
+    for b in range(4):
+        one = [f[b:b + 1] for f in feats]
+        assert select_action(gpu, *(f.to(cuda) for f in one), cfg.space) == select_action(params, *one, cfg.space)
+
+
+@pytest.mark.cuda
+def test_train_selector_step_on_the_card_matches_the_cpu(cuda, no_tf32, monkeypatch):
+    """One train_selector step from the same init: the loss, the gradients
+    and the updated parameters.  AdamW's first update is lr g / (|g| + eps),
+    so an entry whose gradient cancels to ~0 may step either way on either
+    device: those (|g| < 1e-6 on the CPU) are held to 2 lr instead."""
+    import numpy as np
+
+    from repro_torch.core.selector import init_selector, selector_loss
+    from repro_torch.training import selector_train
+    from repro_torch.training.optim import tree_leaves, tree_map
+
+    cfg, traces = _selector_case()
+    params = init_selector(cfg, torch.Generator().manual_seed(1), "cpu")
+    monkeypatch.setattr(selector_train, "init_selector", lambda c, g, device: tree_map(lambda p: p.to(device), params))
+    lr = 1e-3
+    runs = {d: selector_train.train_selector(traces, cfg, steps=1, batch=16, lr=lr, seed=3, device=d)
+            for d in ("cpu", cuda)}
+    assert abs(runs["cpu"][1][0] - runs[cuda][1][0]) <= 1e-5
+    # the step's minibatch, as train_selector draws it, and its gradients on the CPU
+    idx = np.random.default_rng(3).integers(0, 24, size=16)
+    batch = {k: torch.as_tensor(v[idx]) for k, v in traces.items()}
+    batch["base"] = torch.full((16,), selector_train.best_static_action(traces))
+    batch["scalars"] = torch.as_tensor(selector_train._standardize(traces["scalars"])[idx])
+    leaves = tree_map(lambda p: p.clone().requires_grad_(True), params)
+    loss = selector_loss(leaves, batch)
+    loss.backward()
+    assert abs(float(loss.detach()) - runs["cpu"][1][0]) <= 1e-6
+    for p_cpu, p_gpu, g in zip(tree_leaves(runs["cpu"][0]), tree_leaves(runs[cuda][0]),
+                               tree_leaves(tree_map(lambda p: p.grad, leaves))):
+        assert p_gpu.device.type == "cuda"
+        diff = (p_gpu.cpu() - p_cpu).abs()
+        settled = g.abs() >= 1e-6
+        assert diff[settled].max().item() <= 1e-5 if settled.any() else True
+        assert diff.max().item() <= 2 * lr
