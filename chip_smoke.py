@@ -33,7 +33,15 @@
    row at length 0), alone at B 128 against SDPA, and paged on phase 4's
    arena and on rows of 512 blocks; their outputs are averages over up to
    32768 slots (~0.02-0.06), so each batch row is held to TOLERANCE times
-   its own largest |output| (DECODE_TOLERANCE_RULE).
+   its own largest |output| (DECODE_TOLERANCE_RULE).  The tree kernels'
+   head_dim-256 instances run at recurrentgemma-2b's heads (H 10, Hkv 1)
+   under its 2048-slot window: the single-stream trunk and commit passes
+   (on a 1024-slot ring and past the window on a 4096-slot one), phase
+   7c's 2600-token prefill (434 query tiles in one batch row), the
+   batched branch replay's 16 forked rows, and 8 paged rows (the 8-token
+   admission prefill, short rows and rows past the window); the draft's
+   D 128 instance at the same heads (G 10) in its forked branch step and
+   its 2600-token prefill; SDPA or gather+SDPA beside each.
 3. The main path at full width: granite-8b (36 layers, bf16) with its
    make_draft_cfg draft, random weights drawn on the card from seeded
    generators, served by SpeculativeEngine with specinfer at
@@ -76,7 +84,24 @@
    AnalyticSelector on one request of 8 tokens, and a pooled peek against
    the single-stream peek at the same prefix (pools unchanged bit for bit).
    Launch counts are checked in every run as in phases 3-5.
-7. Prints the kernels' JSON line, then the card's line, then as the last
+7. The recurrent families on the replay strategy, at full width, after the
+   earlier models are freed: (a) mamba2-2.7b (64 layers, d 2560, 80 SSD
+   heads of 64, state 128) and (b) recurrentgemma-2b (26 layers: 8 groups
+   of (rec, rec, local-attn) and a tail of 2 rec layers, 10/1 heads of
+   256, window 2048), each with its make_draft_cfg draft: one specinfer
+   (2, 2, 2) request of 32 tokens through SpeculativeEngine, then phase
+   4's traffic through BatchedSpeculativeEngine, pipelined then
+   synchronous (tokens equal), a profile of one step traced on the device
+   only (run first: it also warms the pair's shapes), peak memory; launch counts
+   exact (none for mamba2, which has no attention; for the hybrid, its 8
+   target and 4 draft attention layers times the passes).  (c) One
+   hybrid request of a 2600-token prompt on a 4096-slot ring, past the
+   2048-slot window, so the tree kernel skips the dead chunks below it.
+   (d) Each full-width draft in float32 on the card against the CPU: a
+   prefill, a decode, a 3-token trunk decode from the state and a K = 2
+   forked branch pass.  Phase 2 holds the tree kernels' head_dim-256
+   instances at the hybrid's heads under its window mask.
+8. Prints the kernels' JSON line, then the card's line, then as the last
    line {"ok": true, "device": {...}}.  With ``--json-dir DIR`` it also
    writes the per-shape kernel table and a summary there as JSON.
 
@@ -371,6 +396,7 @@ def phase_kernels(torch):
                 f"plain {plain_ms:.4f} ms  sdpa {library_ms:.4f} ms  bound {bound_ms:.5f} ms ({bound_by})")
             _log_control(control, dname)
         rows += paged_kernel_rows(torch, dtype, gen, timer)
+        rows += hybrid_kernel_rows(torch, dtype, gen, timer)
         rows += decode_kernel_rows(torch, dtype, gen, timer)
     rows += decode_alone_rows(torch, gen, timer)
     return rows
@@ -738,6 +764,112 @@ def paged_kernel_rows(torch, dtype, gen, timer):
     return rows
 
 
+# ------------------------------------- the tree kernels at recurrentgemma-2b's heads ---
+
+# recurrentgemma-2b's local attention: 10 query heads of 256 over one KV head, a 2048-slot window;
+# its draft's: 10 heads of 128 over one
+HYB_HEADS, HYB_WINDOW = (10, 1), 2048
+# (kernel, case, B, T, slots, committed length of row 0, head_dim): the single-stream trunk
+# and commit passes on the engines' 1024-slot rings, phase 7c's ring past the window and
+# its 2600-token prefill (434 query tiles of 6 rows in one batch row at D 256, 217 of 12 at
+# D 128), the batched branch replay (8 rows x K 2 forked rows of L2 2 tokens), the draft's
+# forked branch step, and paged rows as the batched pool holds them (64-slot blocks), the
+# 8-token admission prefill (2 query tiles), short and past the window
+HYB_CASES = [("tree_attention", "hybrid trunk pass, 1024-slot ring", 1, 3, 1024, 40, 256),
+             ("tree_attention", "hybrid commit pass past the window, 4096-slot ring", 1, 5, 4096, 3000, 256),
+             ("tree_attention", "hybrid 7c prefill, 2600 tokens, 4096-slot ring", 1, 2600, 4096, 0, 256),
+             ("tree_attention", "hybrid batched branch replay, 16 forked rows", 16, 2, 1024, 40, 256),
+             ("tree_attention", "hybrid draft branch step, 2 forked rows, D 128", 2, 1, 1024, 40, 128),
+             ("tree_attention", "hybrid draft 7c prefill, 2600 tokens, D 128", 1, 2600, 4096, 0, 128),
+             ("paged_tree_attention", "hybrid paged admission prefill, 8 rows", 8, 8, 1024, 0, 256),
+             ("paged_tree_attention", "hybrid paged rows, 8 rows", 8, 3, 1024, 40, 256),
+             ("paged_tree_attention", "hybrid paged rows past the window, 8 rows", 8, 3, 4096, 3000, 256)]
+
+
+def _hybrid_case_inputs(torch, B, T, S, C, D, dtype, gen, paged):
+    """q, k/v (a dense ring (B, S, 1, D), or an arena of 64-slot blocks and
+    tables), and the local-window mask of T new tokens after C + 9 b
+    committed ones in row b, made by the port's own cache functions."""
+    from repro_torch.models.cache import attn_mask_from_pos
+
+    H, Hkv = HYB_HEADS
+    lengths = torch.tensor([C + 9 * b for b in range(B)], device="cuda")
+    slot = torch.arange(S, device="cuda")[None]
+    pos = torch.where(slot < (lengths + T)[:, None], slot, -1)
+    q_pos = lengths[:, None] + torch.arange(T, device="cuda")
+    mask = attn_mask_from_pos(pos, q_pos, HYB_WINDOW)[:, 0].contiguous()
+    q = torch.randn(B, T, H, D, generator=gen, device="cuda").to(dtype)
+    if not paged:
+        k, v = (torch.randn(B, S, Hkv, D, generator=gen, device="cuda").to(dtype) for _ in range(2))
+        return q, k, v, None, mask
+    nb = S // BLOCK
+    k, v = (torch.randn(B * nb + 1, BLOCK, Hkv, D, generator=gen, device="cuda").to(dtype) for _ in range(2))
+    tbl = (torch.randperm(B * nb, generator=gen, device="cuda") + 1).reshape(B, nb).to(torch.int32)
+    need = (lengths + T + BLOCK - 1) // BLOCK
+    tbl = torch.where(torch.arange(nb, device="cuda")[None] < need[:, None], tbl, -1)
+    return q, k, v, tbl, mask
+
+
+def hybrid_kernel_rows(torch, dtype, gen, timer):
+    """Kernels 1-2 at recurrentgemma-2b's heads (head_dim 256) and its
+    draft's (128) under the window mask, against the plain versions
+    (TREE_TOLERANCE_RULE), with their times, bounds and SDPA (dense) or
+    gather+SDPA (paged) times."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.paged_tree_attention import paged_tree_attention
+    from repro_torch.kernels.ref import paged_gather_kv_ref, paged_tree_attention_ref, tree_attention_ref
+    from repro_torch.kernels.tree_attention import tree_attention
+
+    dname = str(dtype).replace("torch.", "")
+    rows = []
+    for kernel, case, B, T, S, C, D in HYB_CASES:
+        paged = kernel == "paged_tree_attention"
+        q, k, v, tbl, mask = _hybrid_case_inputs(torch, B, T, S, C, D, dtype, gen, paged)
+        if paged:
+            def fn():
+                return paged_tree_attention(q, k, v, tbl, mask)
+
+            def plain():
+                return paged_tree_attention_ref(q, k, v, tbl, mask)
+
+            def library():
+                kd, vd = paged_gather_kv_ref(k, v, tbl)
+                return F.scaled_dot_product_attention(q.transpose(1, 2), kd.transpose(1, 2), vd.transpose(1, 2),
+                                                      attn_mask=mask[:, None], enable_gqa=True)
+        else:
+            def fn():
+                return tree_attention(q, k, v, mask)
+
+            def plain():
+                return tree_attention_ref(q, k, v, mask)
+
+            def library():
+                return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                                      attn_mask=mask[:, None], enable_gqa=True)
+        out = fn()
+        torch.cuda.synchronize()
+        err, rel = _check_tree(torch, kernel, case, dname, out, plain())
+        H, D = q.shape[2], q.shape[3]
+        group = torch.arange(B, device="cuda").repeat_interleave(T)
+        extra = mask.numel() + (0 if tbl is None else tbl.numel() * 4)
+        bound_ms, bound_by = rows_bound(torch, q.reshape(B * T, H, D), mask.reshape(B * T, S), group, B, 1, extra)
+        ms, plain_ms, library_ms = timer(fn), timer(plain), timer(library)
+        shape = {"B": B, "T": T, "H": H, "Hkv": 1, "S": S, "D": D, "window": HYB_WINDOW,
+                 "live_chunks_row0": int(mask[0].any(dim=0).reshape(-1, 32).any(dim=1).sum())}
+        rows.append({"kernel": kernel, "case": case, "dtype": dname, "shape": shape, "max_abs_err": err,
+                     "max_rel_err": rel, "tolerance": TOLERANCE[dname], "tolerance_rule": TREE_TOLERANCE_RULE,
+                     "ms": ms, "plain_ms": plain_ms, "library_ms": None if paged else library_ms,
+                     "composed_ms": library_ms if paged else None, "composed_of": "gather+sdpa" if paged else None,
+                     "bound_ms": bound_ms, "bound_by": bound_by})
+        log(f"  {kernel} {case:52s} {dname:8s} err {err:.3e} rel {rel:.3e}  kernel {ms:.4f} ms  plain "
+            f"{plain_ms:.4f} ms  {'gather+sdpa' if paged else 'sdpa'} {library_ms:.4f} ms  bound {bound_ms:.5f} ms "
+            f"({bound_by})")
+        del q, k, v, mask
+        torch.cuda.empty_cache()
+    return rows
+
+
 # ---------------------------------------------------- the flash-decode kernels ---
 
 DECODE_S = 32768  # decode_32k's cache (src/repro/launch/shapes.py:25)
@@ -940,9 +1072,11 @@ def _run_engine(torch, eng, prompts, max_new, n_layers, actions=None):
     wall = time.perf_counter() - t0
     launches = tree_attention.launches
     c = eng.counters
-    n_tgt, n_drf = n_layers
-    expected = n_tgt * (len(prompts) + c["target_calls"]) + n_drf * (len(prompts) + c["draft_calls"])
-    if launches == 0 or launches != expected:
+    n_tgt, n_drf = n_layers  # attention layers (0 for an SSM)
+    # the replay strategy's commit re-advance is a target pass target_calls does not count
+    commits = c["blocks"] if eng.strategy == "replay" else 0
+    expected = n_tgt * (len(prompts) + c["target_calls"] + commits) + n_drf * (len(prompts) + c["draft_calls"])
+    if launches != expected or (expected and launches == 0):
         raise RuntimeError(f"tree_attention launched {launches} times, expected {expected} "
                            "(masked attention passes x layers)")
     for out in outs:
@@ -1146,12 +1280,14 @@ def _serve_batched(torch, eng, prompts, max_new, seeds, layers, actions=None, ne
     for fn in counters.values():
         fn.launches = 0
     first, last, seen = {}, {}, {}
+    commit_groups = 0  # replay: one target pass a step for each distinct commit length
     t0 = time.perf_counter()
     rids = [eng.submit(p, max_new=m, seed=sd) for p, m, sd in zip(prompts, max_new, seeds)]
     while eng.queue or eng.streams:
         ts = time.perf_counter()
         events = eng.step()
         te = time.perf_counter()
+        commit_groups += len({len(ev["new_tokens"]) for ev in events})
         for ev in events:
             first.setdefault(ev["rid"], ts)
             seen.setdefault(ev["rid"], []).append(len(ev["new_tokens"]))
@@ -1168,21 +1304,44 @@ def _serve_batched(torch, eng, prompts, max_new, seeds, layers, actions=None, ne
     if len(levels) != steps:
         raise RuntimeError(f"the selector chose actions for {len(levels)} steps; the engine ran {steps}")
     trunk, branch = sum(lv[0] for lv in levels), sum(lv[1] for lv in levels)
-    expected = {
-        # the admission prefills (target + draft) and the branch steps of every step
-        "tree_attention": len(prompts) * (n_tgt + n_drf) + n_drf * branch,
-        # ingest and the trunk steps of every step, and the padded target passes
-        "paged_tree_attention": n_drf * (steps + trunk) + n_tgt * c["padded_calls"],
-        "ragged_paged_tree_attention": n_tgt * c["ragged_calls"],
-        "commit_kv": c["commit_calls"],
-        **{name: 0 for name in NO_ENGINE_PATH},
-    }
-    if c["draft_calls"] != steps + trunk + branch or c["commit_calls"] != steps:
-        raise RuntimeError(f"draft calls {c['draft_calls']}, commits {c['commit_calls']} for {steps} steps "
-                           f"of {trunk} trunk and {branch} branch steps: expected {steps + trunk + branch} "
-                           f"and {steps}")
+    if eng.strategy == "replay":
+        # every pass but the draft trunk runs on dense rows gathered from the pools: the
+        # admission prefills, the draft ingest (one pass per delta length), the branch
+        # steps, and the target's trunk and branch groups (target_calls) and commit groups
+        steps = c["commit_calls"]
+        levels = [(eng.ecfg.L1, eng.ecfg.L2)] * steps
+        trunk, branch = steps * eng.ecfg.L1, steps * eng.ecfg.L2
+        ingest = c["draft_calls"] - trunk - branch
+        if ingest < steps:
+            raise RuntimeError(f"{c['draft_calls']} draft calls for {steps} steps of {trunk} trunk and "
+                               f"{branch} branch steps: fewer than one ingest a step")
+        expected = {
+            "tree_attention": n_tgt * (len(prompts) + c["target_calls"] + commit_groups)
+            + n_drf * (len(prompts) + ingest + branch),
+            # the draft trunk steps on the pool itself
+            "paged_tree_attention": n_drf * trunk if eng.paged else 0,
+            "ragged_paged_tree_attention": 0,
+            "commit_kv": 0,
+            **{name: 0 for name in NO_ENGINE_PATH},
+        }
+        if not eng.paged:
+            expected["tree_attention"] += n_drf * trunk
+    else:
+        expected = {
+            # the admission prefills (target + draft) and the branch steps of every step
+            "tree_attention": len(prompts) * (n_tgt + n_drf) + n_drf * branch,
+            # ingest and the trunk steps of every step, and the padded target passes
+            "paged_tree_attention": n_drf * (steps + trunk) + n_tgt * c["padded_calls"],
+            "ragged_paged_tree_attention": n_tgt * c["ragged_calls"],
+            "commit_kv": c["commit_calls"],
+            **{name: 0 for name in NO_ENGINE_PATH},
+        }
+        if c["draft_calls"] != steps + trunk + branch or c["commit_calls"] != steps:
+            raise RuntimeError(f"draft calls {c['draft_calls']}, commits {c['commit_calls']} for {steps} steps "
+                               f"of {trunk} trunk and {branch} branch steps: expected {steps + trunk + branch} "
+                               f"and {steps}")
     for name, want in expected.items():
-        if launches[name] != want or (launches[name] == 0 and name not in NO_ENGINE_PATH + (
+        if launches[name] != want or (launches[name] == 0 and want and name not in NO_ENGINE_PATH + (
                 () if need_both else ("ragged_paged_tree_attention",))):
             raise RuntimeError(f"{name} launched {launches[name]} times, expected {want} (passes x layers)")
     if need_both and not (c["padded_calls"] and c["ragged_calls"]):
@@ -1202,16 +1361,20 @@ def _serve_batched(torch, eng, prompts, max_new, seeds, layers, actions=None, ne
            "pad_fraction": c["pad_nodes_total"] / max(c["tree_lanes_total"], 1),
            "blocks_peak": c["blocks_peak"], "steps": steps, "padded_calls": c["padded_calls"],
            "ragged_calls": c["ragged_calls"], "pipeline_ahead": c["pipeline_ahead"],
-           "pipeline_stalls": c["pipeline_stalls"], "launches": launches,
+           "pipeline_stalls": c["pipeline_stalls"], "launches": launches, "expected_launches": expected,
            "tokens_per_step": [seen[r] for r in rids]}
     return tokens, res
 
 
-def _profile_batched(torch, eng, prompts, seeds, n_steps):
+def _profile_batched(torch, eng, prompts, seeds, n_steps, host_ops=True):
     """Device time by kernel and the device's busy share over ``n_steps``
-    steps of a full pool (8 resident streams)."""
+    steps of a full pool (8 resident streams).  ``host_ops`` False traces the
+    device only (no host op breakdown; launches are then the device's kernel
+    records): the profiler's own processing of a recurrent step's ~30000
+    launches and their host ops takes tens of seconds."""
     from torch.profiler import ProfilerActivity, profile
 
+    t_prof = time.perf_counter()
     counters = _launch_counters()
     for p, sd in zip(prompts, seeds):
         eng.submit(p, max_new=48, seed=sd)
@@ -1219,7 +1382,8 @@ def _profile_batched(torch, eng, prompts, seeds, n_steps):
     torch.cuda.synchronize()
     for fn in counters.values():
         fn.launches = 0
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if host_ops else [ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         for _ in range(n_steps):
             eng.step()
@@ -1228,16 +1392,20 @@ def _profile_batched(torch, eng, prompts, seeds, n_steps):
     wrapper_launches = {name: fn.launches for name, fn in counters.items()}
     eng.abort_pipeline()
     by_name: dict[str, float] = {}
+    device_kernels = 0
     for evt in prof.events():
         if evt.device_type == torch.autograd.DeviceType.CUDA:
             by_name[evt.name] = by_name.get(evt.name, 0.0) + evt.time_range.elapsed_us() / 1e3
+            device_kernels += not evt.name.startswith(("Memcpy", "Memset"))
     busy_ms = sum(by_name.values())
     mine = _kernel_times(by_name, wrapper_launches)
-    ops = [(e.key, e.self_cpu_time_total / 1e3, e.count) for e in prof.key_averages()]
+    ops = [(e.key, e.self_cpu_time_total / 1e3, e.count) for e in prof.key_averages()] if host_ops else []
     torch_host_ms = sum(t for _, t, _ in ops)
-    launches = sum(n for k, _, n in ops if k in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"))
+    launches = (sum(n for k, _, n in ops if k in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"))
+                if host_ops else device_kernels)
     log(f"  profile: {n_steps} steps of 8 streams, wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms "
-        f"({100 * busy_ms / wall_ms:.1f} %), kernel launches {launches}")
+        f"({100 * busy_ms / wall_ms:.1f} %), kernel launches {launches}"
+        + ("" if host_ops else " (device kernel records)"))
     for k, r in mine.items():
         per = "" if r["us_per_launch"] is None else f", {r['us_per_launch']:.2f} us a call"
         log(f"    {k:52s} {r['ms']:9.3f} ms ({100 * r['ms'] / max(busy_ms, 1e-9):.1f} % of busy) in "
@@ -1245,13 +1413,18 @@ def _profile_batched(torch, eng, prompts, seeds, n_steps):
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     for name, t in top:
         log(f"    device {t:9.3f} ms  {name[:100]}")
-    log(f"  host: {torch_host_ms:.2f} ms inside torch ops (self CPU time, waits in copies to the host included), "
-        f"{wall_ms - torch_host_ms:.2f} ms outside them")
     host = sorted(ops, key=lambda r: -r[1])[:8]
-    for name, t, n in host:
-        log(f"    host self {t:9.3f} ms  x{n:<6d} {name[:80]}")
+    if host_ops:
+        log(f"  host: {torch_host_ms:.2f} ms inside torch ops (self CPU time, waits in copies to the host "
+            f"included), {wall_ms - torch_host_ms:.2f} ms outside them")
+        for name, t, n in host:
+            log(f"    host self {t:9.3f} ms  x{n:<6d} {name[:80]}")
+    seconds = time.perf_counter() - t_prof
+    log(f"  the profile took {seconds:.1f} s (admission and a first step outside the window included)")
     return {"steps": n_steps, "wall_ms": wall_ms, "device_busy_ms": busy_ms, "kernel_ms": mine,
-            "launches": launches, "torch_host_ms": torch_host_ms, "top_kernels_ms": top, "top_host_self_ms": host}
+            "launches": launches, "launches_from": "cudaLaunchKernel calls" if host_ops else "device kernel records",
+            "torch_host_ms": torch_host_ms if host_ops else None, "top_kernels_ms": top, "top_host_self_ms": host,
+            "seconds": seconds}
 
 
 def phase_batched(torch):
@@ -1821,6 +1994,184 @@ def phase_nde(torch, smi):
     torch.cuda.empty_cache()
     return results, single_launches, batched_runs
 
+# ---------------------------------------------- phase 7: the recurrent families ---
+
+RECURRENT_ARCHES = ("mamba2-2.7b", "recurrentgemma-2b")
+LONG_PROMPT, LONG_RING = 2600, 4096  # 7c: a prompt past the 2048-slot window, on a ring that holds it
+
+
+def _attn_layers(cfg):
+    """Layers with masked attention: every layer of an attention stack, the
+    local-attention layer of each hybrid group, none in an SSM."""
+    if cfg.arch_type == "ssm":
+        return 0
+    if cfg.arch_type == "hybrid":
+        return cfg.n_layers // cfg.hybrid_attn_every
+    return cfg.n_layers
+
+
+def phase_recurrent_reference(torch, cfg, seed, title):
+    """A full-width recurrent draft ``cfg`` in float32: the card (kernels)
+    against the CPU (plain versions), same weights: a 7-token prefill, a
+    one-token decode, a 3-token trunk decode from the state (the chunked
+    SSD branch), and a K = 2 fork of the post-trunk cache decoding 2
+    tokens a branch.  Logits and every recurrent state leaf are held to
+    1e-3 of their scale."""
+    log(f"== {title} on the card against the CPU, float32")
+    import numpy as np
+
+    from repro_torch.models.cache import fork_streams
+    from repro_torch.models.transformer import forward, init_cache, init_params
+
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(seed))
+
+    def to_cpu(tree):
+        return {k: to_cpu(v) if isinstance(v, dict) else v.cpu() for k, v in tree.items()}
+
+    devs = {"cuda": params, "cpu": to_cpu(params)}
+    rng = np.random.default_rng(seed)
+    passes = [("prefill", rng.integers(0, cfg.vocab, size=(1, 7)), False),
+              ("decode", rng.integers(0, cfg.vocab, size=(1, 1)), False),
+              ("trunk", rng.integers(0, cfg.vocab, size=(1, 3)), False),
+              ("forked branch", rng.integers(0, cfg.vocab, size=(2, 2)), True)]
+    caches = {d: init_cache(cfg, 1, 1024, d) for d in devs}
+    worst = 0.0
+    for name, toks, fork in passes:
+        logits, new = {}, {}
+        for d, p in devs.items():
+            lg, new[d], _ = forward(p, cfg, torch.as_tensor(toks, device=d), mode="full" if name == "prefill"
+                                    else "decode", cache=fork_streams(caches[d], 2) if fork else caches[d])
+            logits[d] = lg.cpu()
+        errs = [(logits["cuda"] - logits["cpu"]).abs().max().item() / max(1.0, logits["cpu"].abs().max().item())]
+        for leaf in ("state", "rec_state", "tail_state"):
+            if leaf in new["cpu"]:
+                a, b = new["cuda"][leaf].cpu(), new["cpu"][leaf]
+                errs.append((a - b).abs().max().item() / max(1.0, b.abs().max().item()))
+        rel = max(errs)
+        worst = max(worst, rel)
+        log(f"  {name}: max relative |card - cpu| over logits and recurrent state = {rel:.3e}")
+        if not torch.isfinite(logits["cuda"]).all() or rel > 1e-3:
+            raise RuntimeError(f"{cfg.name} on the card disagrees with the CPU in the {name} pass: {rel}")
+        if not fork:
+            caches = new
+    del params, devs, caches
+    torch.cuda.empty_cache()
+    return worst
+
+
+def phase_recurrent(torch):
+    """7a-7c: each recurrent pair at full width through both engines, launch
+    counts exact; the long-context hybrid request."""
+    import gc
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import make_draft_cfg
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving.batch_engine import BatchedSpeculativeEngine
+    from repro_torch.serving.engine import EngineConfig, SamplingParams, SpeculativeEngine
+
+    t_phase = time.perf_counter()
+    sampling = SamplingParams(1.0, 1.0)
+    results, single_launches, batched_runs = {}, 0, []
+    for i, arch in enumerate(RECURRENT_ARCHES):
+        t_arch = time.perf_counter()
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        tcfg = get_config(arch)
+        dcfg = make_draft_cfg(tcfg)
+        log(f"== phase 7{'ab'[i]}: {arch} + draft at full width, bf16, replay strategy")
+        for role, c in (("target", tcfg), ("draft ", dcfg)):
+            log(f"{role} {c.name}: L={c.n_layers} d={c.d_model} " + (
+                f"d_inner={c.d_inner} heads={c.ssm_heads}x{c.ssm_headdim} state={c.ssm_state} "
+                f"chunk={c.ssm_chunk}" if c.arch_type == "ssm" else
+                f"lru={c.lru_d} H={c.n_heads} Hkv={c.n_kv_heads} hd={c.hd} window={c.local_window} ff={c.d_ff}")
+                + f" V={c.vocab} ({c.param_count() / 1e9:.2f} B params)")
+        tp = init_params(tcfg, torch.Generator(device="cuda").manual_seed(0))
+        dp = init_params(dcfg, torch.Generator(device="cuda").manual_seed(1))
+        torch.cuda.synchronize()
+        layers = (_attn_layers(tcfg), _attn_layers(dcfg))
+        rng = np.random.default_rng(7 + i)
+        res = {"target": {"n_layers": tcfg.n_layers, "params": tcfg.param_count(), "attn_layers": layers[0]},
+               "draft": {"n_layers": dcfg.n_layers, "params": dcfg.param_count(), "attn_layers": layers[1]}}
+
+        prompt = rng.integers(0, tcfg.vocab, size=8).tolist()
+        prompts = [rng.integers(0, tcfg.vocab, size=8).tolist() for _ in range(N_REQUESTS)]
+        max_new = [16 + (32 * j) // (N_REQUESTS - 1) for j in range(N_REQUESTS)]
+        seeds = [300 + j for j in range(N_REQUESTS)]
+
+        def engine(pipeline):
+            return BatchedSpeculativeEngine(tcfg, tp, dcfg, dp, EngineConfig("specinfer", 2, 2, 2, 1024), sampling,
+                                            n_slots=N_SLOTS, paged=True, block_size=64, pipeline=pipeline)
+
+        # one profiled step of a full pool, device only; it also warms the allocator and
+        # cuBLAS for the pair's shapes, so no run below is a warm-up
+        res["profile"] = _profile_batched(torch, engine(True), prompts[:N_SLOTS], seeds[:N_SLOTS], 1, host_ops=False)
+        res["profile"]["launches_per_step"] = res["profile"]["launches"] / res["profile"]["steps"]
+        eng = SpeculativeEngine(tcfg, tp, dcfg, dp, EngineConfig("specinfer", 2, 2, 2, 1024, seed=0), sampling)
+        outs, wall, launches, be = _run_engine(torch, eng, [prompt], 32, layers)
+        single_launches += launches
+        c = eng.counters
+        res["single"] = {"block_efficiency": be, "wall_s": wall, "tokens_per_s": 32 / wall, "launches": launches,
+                         "steps": c["blocks"], "target_calls": c["target_calls"], "draft_calls": c["draft_calls"]}
+        log(f"  single stream specinfer (2,2,2): {32 / wall:.3f} tok/s, block_efficiency {be:.4f}, "
+            f"{c['blocks']} steps, target calls {c['target_calls']} (+ {c['blocks']} commits), draft calls "
+            f"{c['draft_calls']}, tree_attention launches {launches} (= {layers[0]} x (1 + {c['target_calls']} "
+            f"+ {c['blocks']}) + {layers[1]} x (1 + {c['draft_calls']})); {outs[0]}")
+
+        tokens = {}
+        for mode, pipeline in (("pipelined", True), ("sync", False)):
+            tokens[mode], res[mode] = _serve_batched(torch, engine(pipeline), prompts, max_new, seeds, layers,
+                                                     need_both=False)
+            r = res[mode]
+            batched_runs.append(r["launches"])
+            log(f"  {mode}: {r['tokens']} tokens in {r['wall_s']:.4f} s = {r['tokens_per_s']:.3f} tok/s aggregate, "
+                f"per-stream median {r['per_stream_tokens_per_s_median']:.3f} tok/s, block_efficiency "
+                f"{r['block_efficiency']:.4f}, {r['steps']} steps, ahead {r['pipeline_ahead']} stalls "
+                f"{r['pipeline_stalls']}, launches {r['launches']}")
+        if tokens["pipelined"] != tokens["sync"]:
+            bad = [j for j, (a, b) in enumerate(zip(tokens["pipelined"], tokens["sync"])) if a != b]
+            raise RuntimeError(f"{arch}: pipelined tokens differ from synchronous tokens for requests {bad}")
+        res["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        log(f"  pipelined tokens == sync tokens for all {N_REQUESTS} requests; max_memory_allocated "
+            f"{res['max_memory_allocated'] / 2**30:.3f} GiB")
+        res["seconds"] = time.perf_counter() - t_arch
+        parts = {"profile": res["profile"]["seconds"], "single": res["single"]["wall_s"],
+                 "pipelined": res["pipelined"]["wall_s"], "sync": res["sync"]["wall_s"]}
+        log(f"  phase 7{'ab'[i]} took {res['seconds']:.1f} s: " + ", ".join(f"{k} {v:.1f} s" for k, v in parts.items())
+            + f", the rest (weights, engines, admissions) {res['seconds'] - sum(parts.values()):.1f} s")
+
+        if tcfg.arch_type == "hybrid":
+            log(f"== phase 7c: one {arch} request of {LONG_PROMPT} prompt tokens on a {LONG_RING}-slot ring, "
+                f"past the {tcfg.local_window}-slot window")
+            long_prompt = rng.integers(0, tcfg.vocab, size=LONG_PROMPT).tolist()
+            eng = SpeculativeEngine(tcfg, tp, dcfg, dp, EngineConfig("specinfer", 2, 2, 2, LONG_RING, seed=5),
+                                    sampling)
+            outs, wall, launches, be = _run_engine(torch, eng, [long_prompt], 16, layers)
+            single_launches += launches
+            res["long_context"] = {"prompt": LONG_PROMPT, "ring": LONG_RING, "window": tcfg.local_window,
+                                   "wall_s": wall, "block_efficiency": be, "launches": launches,
+                                   "steps": eng.counters["blocks"]}
+            res["long_context"]["seconds"] = time.perf_counter() - t_arch - res["seconds"]
+            log(f"  served 16 tokens after the prefill in {wall:.4f} s (prefill included), block_efficiency "
+                f"{be:.4f}, tree_attention launches {launches}; {outs[0]}")
+        results[arch] = res
+        del tp, dp, eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    t_ref = time.perf_counter()
+    drafts = {arch: make_draft_cfg(get_config(arch)).replace(dtype="float32") for arch in RECURRENT_ARCHES}
+    results["draft_card_vs_cpu_rel_err"] = {
+        arch: phase_recurrent_reference(torch, cfg, 11, f"phase 7d: the full-width {arch} draft")
+        for arch, cfg in drafts.items()}
+    log(f"  phase 7d took {time.perf_counter() - t_ref:.1f} s")
+    results["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 7 took {results['seconds']:.1f} s")
+    return results, single_launches, batched_runs
+
+
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -1855,13 +2206,14 @@ def main():
         phase_reference(torch, moe_draft32, 6, "phase 5b: the MoE draft cut to 2 layers"),
         phase_batched_reference(torch, moe_draft32, 7, "phase 5c: batched passes of the MoE draft cut to 2 layers"))
     nde, nde_single_launches, nde_batched_runs = phase_nde(torch, smi)
+    recurrent, rec_single_launches, rec_batched_runs = phase_recurrent(torch)
 
-    # each kernel's launches over every main-path run (phases 3, 5 and 6 single stream, both
-    # runs of phases 4, 5 and 6e); its times at the hottest shape of its path, in bf16
+    # each kernel's launches over every main-path run (phases 3, 5, 6 and 7 single stream, both
+    # runs of phases 4, 5, 6e and 7); its times at the hottest shape of its path, in bf16
     runs = [batched["pipelined"]["launches"], batched["sync"]["launches"],
-            moe["pipelined"]["launches"], moe["sync"]["launches"], *nde_batched_runs]
+            moe["pipelined"]["launches"], moe["sync"]["launches"], *nde_batched_runs, *rec_batched_runs]
     total = {name: sum(r[name] for r in runs) for name in runs[0]}
-    total["tree_attention"] += launches + moe_launches + nde_single_launches
+    total["tree_attention"] += launches + moe_launches + nde_single_launches + rec_single_launches
     headline = {"tree_attention": "target tree pass", "paged_tree_attention": "paged target tree pass",
                 "ragged_paged_tree_attention": "ragged target pass, 8 owners",
                 "commit_kv": "36-layer arena, B*P = 32, chains + trash padding",
@@ -1896,14 +2248,15 @@ def main():
     # the tree kernels' device time per call inside the engines (profiled windows of phases 3-5)
     in_engine = {phase: prof["profile"]["kernel_ms"] for phase, prof in
                  (("phase 3 granite one stream", main_path), ("phase 4 granite 8 streams", batched),
-                  ("phase 5 qwen3-moe 8 streams", moe))}
+                  ("phase 5 qwen3-moe 8 streams", moe),
+                  ("phase 7 recurrentgemma-2b 8 streams", recurrent["recurrentgemma-2b"]))}
     for phase, rows_ in in_engine.items():
         log(f"  in-engine device time per call, {phase}: " + ", ".join(
             f"{k} {r['us_per_launch']:.2f} us x {r['launches']}" for k, r in rows_.items() if r["launches"]))
     summary = {"main_path": main_path, "draft_card_vs_cpu_rel_err": ref_err, "batched": batched,
                "in_engine_device_time_per_call": in_engine,
                "batched_draft_card_vs_cpu_rel_err": batched_ref_err, "moe": moe,
-               "moe_draft_card_vs_cpu_rel_err": moe_ref_err, "nde": nde, "nvidia_smi": smi,
+               "moe_draft_card_vs_cpu_rel_err": moe_ref_err, "nde": nde, "recurrent": recurrent, "nvidia_smi": smi,
                "seconds": time.perf_counter() - t_start}
     if args.json_dir:
         args.json_dir.mkdir(parents=True, exist_ok=True)

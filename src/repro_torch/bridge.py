@@ -10,16 +10,19 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-# norm scales and the MoE router stay fp32 whatever the model dtype, as in the
-# JAX package (a rounded router would change routing)
-_FP32_LEAVES = ("ln1", "ln2", "final_ln", "router")
+# norm scales, the MoE router, and the SSM's and RG-LRU's gates, decays and
+# norms stay fp32 whatever the model dtype, as in the JAX package (a rounded
+# router would change routing; a rounded decay would change the state)
+_FP32_LEAVES = ("ln1", "ln2", "final_ln", "router",
+                "ln", "ln_m", "A_log", "D", "dt_bias", "norm_z",  # models/ssm.py, the hybrid's rec layers
+                "w_a", "b_a", "w_i", "b_i", "lam")  # models/rglru.py
 
 
 def params_from_jax(np_params: dict, device="cuda", dtype: torch.dtype = torch.float32) -> dict:
     """The port's parameter dict from a JAX params pytree given as numpy.
 
-    Floating leaves become ``dtype`` (the model's dtype), except the norm
-    scales and the MoE router, which stay float32.  bfloat16 numpy arrays
+    Floating leaves become ``dtype`` (the model's dtype), except those the
+    JAX package keeps float32 (``_FP32_LEAVES``).  bfloat16 numpy arrays
     (ml_dtypes) are read through float32."""
 
     def conv(name, a):

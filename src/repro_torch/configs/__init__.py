@@ -1,9 +1,12 @@
 """Architecture config registry: ``get_config(name)`` / ``get_smoke(name)``.
 
 The counterpart of src/repro/configs/__init__.py for the families this
-package runs so far: the dense granite pair, the paper's Llama-3 70B/8B
-pair and the two MoE configs (qwen3-moe flat, llama4-maverick interleaved).
-The other families join with the slices that port their layers.
+package runs so far: the dense configs (granite-8b, granite-3-2b,
+minitron-8b, qwen2-72b with its QKV bias, and the paper's Llama-3 70B/8B
+pair), the two MoE configs (qwen3-moe flat, llama4-maverick interleaved),
+the SSM mamba2-2.7b and the hybrid recurrentgemma-2b.  The encoder-decoder
+and VLM families (whisper-medium, internvl2-26b) join with the slice that
+ports them.
 """
 from __future__ import annotations
 
@@ -12,8 +15,12 @@ import importlib
 ARCHES = {
     "granite-8b": "granite_8b",
     "granite-3-2b": "granite_3_2b",
+    "minitron-8b": "minitron_8b",
     "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
     "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
+    "qwen2-72b": "qwen2_72b",
+    "mamba2-2.7b": "mamba2_2_7b",
+    "recurrentgemma-2b": "recurrentgemma_2b",
     "paper-llama70b": "paper_llama70b_8b",
 }
 

@@ -70,8 +70,10 @@ int tree_attention_launch(const void* q, const void* k, const void* v, const voi
   p.split_slots = split_slots, p.n_split = n_split, p.mask_vec = mask_vec;
   const int bad = tree_attn::check_schedule(p);
   if (bad) return bad;
+  if (dtype == 0 && D == 256) return launch<float, 256>(p, st);
   if (dtype == 0 && D == 128) return launch<float, 128>(p, st);
   if (dtype == 0 && D == 64) return launch<float, 64>(p, st);
+  if (dtype == 1 && D == 256) return launch<__nv_bfloat16, 256>(p, st);
   if (dtype == 1 && D == 128) return launch<__nv_bfloat16, 128>(p, st);
   if (dtype == 1 && D == 64) return launch<__nv_bfloat16, 64>(p, st);
   return cudaErrorInvalidValue;

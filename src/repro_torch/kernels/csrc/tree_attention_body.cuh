@@ -61,7 +61,13 @@
 //   * split-K only for long caches (the wrapper's schedule: S > 4096, splits of 2048
 //     slots; chosen from the shapes, never from the mask).  Each split writes fp32
 //     partials (m, l, acc) and the combine kernel (one CTA per (row, head)) merges
-//     them; at S <= 4096 a call is one launch.
+//     them; at S <= 4096 a call is one launch;
+//   * head_dim 256 (RecurrentGemma's local attention) doubles every per-row buffer, so
+//     its instances hold at most 64 score rows a CTA (max_rows; the wrapper's schedule
+//     follows), stage 2 chunks a stage in bf16 (2 teams at most), and keep the bf16
+//     queries' mma fragments in shared memory instead of 64 more registers a thread
+//     (the output tile alone is 128 fp32 registers at D 256).  In fp32 the queries of
+//     64 rows and two stages of K/V then fit in shared memory.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -75,7 +81,7 @@ constexpr int kKeys = 32;           // keys per chunk: one mask word per query r
 constexpr int kWarps = 8;           // warps per CTA
 constexpr int kThreads = kWarps * 32;
 constexpr int kWarpRows = 16;       // score rows per warp: one m16 tile
-constexpr int kMaxRows = kWarps * kWarpRows;  // score rows per CTA
+constexpr int kMaxRows = kWarps * kWarpRows;  // score rows per CTA (max_rows: fewer at D 256)
 constexpr int kMaxQuery = 32;       // query rows per CTA
 constexpr int kStages = 2;          // staging stages: one loads while one is used
 constexpr float kNegInf = -1e30f;
@@ -165,14 +171,17 @@ __device__ __forceinline__ uint32_t pack4(uint32_t w) {
   return (t & 1u) | ((t >> 7) & 2u) | ((t >> 14) & 4u) | ((t >> 21) & 8u);
 }
 
+// Score rows a CTA holds at head dim D.
+__host__ __device__ constexpr int max_rows(int D) { return D > 128 ? kMaxRows / 2 : kMaxRows; }
+
 // ------------------------------------------------------------ shared memory ---
 
 // Byte offsets of the dynamic shared memory regions.  The host computes the same
 // layout to size the launch.
 struct Layout {
   int kv;      // staging slots x {K, V} x kKeys x (D + pad) elements; then the teams' merge
-  int q;       // fp32 only: kWarps x 16 x D queries
-  int p;       // fp32 only: kWarps x 16 x kKeys weights
+  int q;       // fp32: max_rows(D) x D queries; bf16 at D > 128: their mma fragments
+  int p;       // fp32 only: max_rows(D) x kKeys weights
   int bits;    // kMaxQuery x n_chunk mask words
   int live;    // live-chunk bitmap words, then the live-chunk list
   int tbl;     // paged: the block-table slice of the key range
@@ -188,11 +197,12 @@ __host__ __device__ inline Layout make_layout(int elt, int D, int slots, int spl
   Layout L;
   int at = 0;
   L.kv = at;
-  at += align16(slots * 2 * kKeys * row * elt);
+  const int merge = elt == 2 ? kWarps * (kWarpRows * D + 64 + kWarpRows) * 4 : 0;  // MmaWarp::kMergeFloats
+  at += align16(max(slots * 2 * kKeys * row * elt, merge));
   L.q = at;
-  if (elt == 4) at += align16(kWarps * kWarpRows * D * 4);
+  if (elt == 4 || D > 128) at += align16(max_rows(D) * D * elt);
   L.p = at;
-  if (elt == 4) at += align16(kWarps * kWarpRows * kKeys * 4);
+  if (elt == 4) at += align16(max_rows(D) * kKeys * 4);
   L.bits = at;
   at += align16(kMaxQuery * n_chunk * 4);
   L.live = at;
@@ -273,7 +283,10 @@ struct MmaWarp {
   static constexpr int NK = D / 16;  // k-steps over D
   static constexpr int ND = D / 8;   // n-tiles over D
   static constexpr int KS = D + 8;   // staged row, elements
-  uint32_t qa[NK][4];
+  // the query fragments in shared memory (NK x 32 lanes x 16 bytes a tile) at D > 128
+  static constexpr bool kQShared = D > 128;
+  uint32_t qa[kQShared ? 1 : NK][4];
+  const uint4* qs;  // kQShared: this warp tile's fragments
   float o[ND][4];
   float m[2], l[2];  // rows g, g + 8: running max (log2 units) and this thread's partial sum
   int ra, rb;        // the two rows' indices among the CTA's score rows
@@ -290,7 +303,10 @@ struct MmaWarp {
   // floats of one warp's merge block: acc (16, D), then l (32 lanes x 2), then m (16)
   static constexpr int kMergeFloats = kWarpRows * D + 64 + kWarpRows;
 
-  __device__ __forceinline__ void init(const Params& p, const Rows& rows, int tile, int lane) {
+  // q_all: the CTA's fragment region (kQShared); write: this warp writes its tile's
+  // fragments there (team 0; the other teams read them after the pre-pass's sync)
+  __device__ __forceinline__ void init(const Params& p, const Rows& rows, int tile, int lane, uint4* q_all,
+                                       bool write) {
     const int g = lane >> 2, t = lane & 3;
     ra = tile * kWarpRows + g;
     rb = ra + 8;
@@ -304,13 +320,23 @@ struct MmaWarp {
     auto pair = [](const unsigned short* r, int d) -> uint32_t {
       return r == nullptr ? 0u : (uint32_t)r[d] | ((uint32_t)r[d + 1] << 16);
     };
+    if constexpr (kQShared) {
+      uint4* mine = q_all + tile * NK * 32;
+      qs = mine;
+      if (write)
+        for (int kk = 0; kk < NK; ++kk) {
+          const int d = 16 * kk + 2 * t;
+          mine[kk * 32 + lane] = make_uint4(pair(qa_p, d), pair(qb_p, d), pair(qa_p, d + 8), pair(qb_p, d + 8));
+        }
+    } else {
 #pragma unroll
-    for (int kk = 0; kk < NK; ++kk) {
-      const int d = 16 * kk + 2 * t;
-      qa[kk][0] = pair(qa_p, d);
-      qa[kk][1] = pair(qb_p, d);
-      qa[kk][2] = pair(qa_p, d + 8);
-      qa[kk][3] = pair(qb_p, d + 8);
+      for (int kk = 0; kk < NK; ++kk) {
+        const int d = 16 * kk + 2 * t;
+        qa[kk][0] = pair(qa_p, d);
+        qa[kk][1] = pair(qb_p, d);
+        qa[kk][2] = pair(qa_p, d + 8);
+        qa[kk][3] = pair(qb_p, d + 8);
+      }
     }
 #pragma unroll
     for (int n = 0; n < ND; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
@@ -333,14 +359,30 @@ struct MmaWarp {
     float s[4][4];
 #pragma unroll
     for (int n = 0; n < 4; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-    for (int n = 0; n < 4; ++n) {
-#pragma unroll
+    if constexpr (kQShared) {
+      // a pair of k-steps' query fragments at a time, from shared memory
+#pragma unroll 2
       for (int kk = 0; kk < NK; kk += 2) {
-        uint32_t b0, b1, b2, b3;
-        ldmatrix_x4(b0, b1, b2, b3, ks + (8 * n + (lane & 7)) * KS + 16 * kk + 8 * (lane >> 3));
-        mma_bf16(s[n], qa[kk], b0, b1);
-        mma_bf16(s[n], qa[kk + 1], b2, b3);
+        const uint4 x = qs[kk * 32 + lane], y = qs[(kk + 1) * 32 + lane];
+        const uint32_t a0[4] = {x.x, x.y, x.z, x.w}, a1[4] = {y.x, y.y, y.z, y.w};
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          uint32_t b0, b1, b2, b3;
+          ldmatrix_x4(b0, b1, b2, b3, ks + (8 * n + (lane & 7)) * KS + 16 * kk + 8 * (lane >> 3));
+          mma_bf16(s[n], a0, b0, b1);
+          mma_bf16(s[n], a1, b2, b3);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+#pragma unroll
+        for (int kk = 0; kk < NK; kk += 2) {
+          uint32_t b0, b1, b2, b3;
+          ldmatrix_x4(b0, b1, b2, b3, ks + (8 * n + (lane & 7)) * KS + 16 * kk + 8 * (lane >> 3));
+          mma_bf16(s[n], qa[kk], b0, b1);
+          mma_bf16(s[n], qa[kk + 1], b2, b3);
+        }
       }
     }
     // mask, online max and weights; key of s[n][e] is 8n + 2t + (e & 1)
@@ -505,17 +547,18 @@ struct MmaWarp {
 };
 
 // fp32: SIMT.  The CTA's score rows are dealt round robin to its 8 warps (row
-// warp + 8 r is the warp's r-th, at most 16), so every warp computes.  Lane j scores
+// warp + 8 r is the warp's r-th, at most RW: 16, or 8 at D 256), so every warp computes.  Lane j scores
 // key j of the chunk for the warp's rows (queries in shared memory); lane j owns
 // output dims j, j + 32, ...
 template <int D>
 struct SimtWarp {
   static constexpr int PL = D / 32;
   static constexpr int KS = D + 4;  // staged row, elements
-  float acc[kWarpRows][PL];
-  float m[kWarpRows], l[kWarpRows];  // running max (log2 units); this lane's partial sum
-  float* q_s;                        // (16, D) this warp's queries
-  float* p_s;                        // (16, 32) this warp's weights
+  static constexpr int RW = max_rows(D) / kWarps;  // score rows a warp holds at most
+  float acc[RW][PL];
+  float m[RW], l[RW];  // running max (log2 units); this lane's partial sum
+  float* q_s;          // (RW, D) this warp's queries
+  float* p_s;          // (RW, 32) this warp's weights
   int warp, nr;                      // this warp's rows: warp + kWarps * r for r < nr
 
   // one team: every warp with rows works on every chunk (a warp without rows is in no
@@ -529,9 +572,9 @@ struct SimtWarp {
   __device__ __forceinline__ void init(const Params& p, const Rows& rows, int warp_, int lane, float* q_all,
                                        float* p_all) {
     warp = warp_;
-    nr = min(kWarpRows, (rows.nrows - warp + kWarps - 1) / kWarps);
-    q_s = q_all + warp * kWarpRows * D;
-    p_s = p_all + warp * kWarpRows * kKeys;
+    nr = min(RW, (rows.nrows - warp + kWarps - 1) / kWarps);
+    q_s = q_all + warp * RW * D;
+    p_s = p_all + warp * RW * kKeys;
     const float* q = static_cast<const float*>(p.q);
     for (int r = 0; r < nr; ++r) {
       const float* qr = q + ((int64_t)rows.qrow(row(r)) * p.H + rows.head(row(r))) * D;
@@ -539,7 +582,7 @@ struct SimtWarp {
     }
     __syncwarp();
 #pragma unroll
-    for (int r = 0; r < kWarpRows; ++r) {
+    for (int r = 0; r < RW; ++r) {
       m[r] = kNegInf;
       l[r] = 0.f;
 #pragma unroll
@@ -549,22 +592,22 @@ struct SimtWarp {
 
   __device__ __forceinline__ void chunk(const float* ks, const float* vs, const Rows& rows, int c,
                                         float scale_log2, int lane) {
-    float s[kWarpRows];
+    float s[RW];
 #pragma unroll
-    for (int r = 0; r < kWarpRows; ++r) s[r] = 0.f;
+    for (int r = 0; r < RW; ++r) s[r] = 0.f;
     const float* kr = ks + lane * KS;
 #pragma unroll 4
     for (int d = 0; d < D; d += 4) {
       const float4 kv = *reinterpret_cast<const float4*>(kr + d);
 #pragma unroll
-      for (int r = 0; r < kWarpRows; ++r) {
+      for (int r = 0; r < RW; ++r) {
         if (r >= nr) break;
         const float4 qv = *reinterpret_cast<const float4*>(q_s + r * D + d);
         s[r] = fmaf(qv.x, kv.x, fmaf(qv.y, kv.y, fmaf(qv.z, kv.z, fmaf(qv.w, kv.w, s[r]))));
       }
     }
 #pragma unroll
-    for (int r = 0; r < kWarpRows; ++r) {
+    for (int r = 0; r < RW; ++r) {
       if (r >= nr) break;
       const bool admit = (rows.word(row(r), c) >> lane) & 1u;
       const float sr = admit ? s[r] * scale_log2 : kNegInf;
@@ -583,7 +626,7 @@ struct SimtWarp {
 #pragma unroll
       for (int i = 0; i < PL; ++i) vv[i] = vs[j * KS + lane + 32 * i];
 #pragma unroll
-      for (int r = 0; r < kWarpRows; ++r) {
+      for (int r = 0; r < RW; ++r) {
         if (r >= nr) break;
         const float pj = p_s[r * kKeys + j];
 #pragma unroll
@@ -595,13 +638,13 @@ struct SimtWarp {
 
   __device__ __forceinline__ void reduce_l() {
 #pragma unroll
-    for (int r = 0; r < kWarpRows; ++r) l[r] = warp_sum(l[r]);
+    for (int r = 0; r < RW; ++r) l[r] = warp_sum(l[r]);
   }
 
   __device__ __forceinline__ bool fully_masked(const Rows&) const {
     bool any = false;
 #pragma unroll
-    for (int r = 0; r < kWarpRows; ++r) any |= r < nr && l[r] == 0.f;
+    for (int r = 0; r < RW; ++r) any |= r < nr && l[r] == 0.f;
     return any;
   }
 
@@ -611,7 +654,7 @@ struct SimtWarp {
 #pragma unroll
       for (int i = 0; i < PL; ++i) vv[i] = vs[j * KS + lane + 32 * i];
 #pragma unroll
-      for (int r = 0; r < kWarpRows; ++r) {
+      for (int r = 0; r < RW; ++r) {
         if (r >= nr) break;
         if (l[r] != 0.f) continue;
 #pragma unroll
@@ -622,7 +665,7 @@ struct SimtWarp {
 
   __device__ __forceinline__ void set_mean_l(const Rows&, float n_slots) {
 #pragma unroll
-    for (int r = 0; r < kWarpRows; ++r)
+    for (int r = 0; r < RW; ++r)
       if (r < nr && l[r] == 0.f) l[r] = n_slots;
   }
 
@@ -631,7 +674,7 @@ struct SimtWarp {
 
   __device__ __forceinline__ void write(const Params& p, const Rows& rows, int lane, int split) const {
 #pragma unroll
-    for (int r = 0; r < kWarpRows; ++r) {
+    for (int r = 0; r < RW; ++r) {
       if (r >= nr) break;
       const int64_t row_hd = (int64_t)rows.qrow(row(r)) * p.H + rows.head(row(r));
       if (p.n_split == 1) {
@@ -659,7 +702,7 @@ struct Traits;
 template <int D>
 struct Traits<__nv_bfloat16, D> {
   using Warp = MmaWarp<D>;
-  static constexpr int kChunks = 4;  // chunks per stage, dealt to up to 4 warp teams
+  static constexpr int kChunks = D > 128 ? 2 : 4;  // chunks per stage, dealt to up to kChunks warp teams
 };
 template <int D>
 struct Traits<float, D> {
@@ -780,7 +823,7 @@ __device__ __forceinline__ void attend(const Params& p, char* smem) {
   Warp w;
   auto init = [&]() {
     if constexpr (sizeof(scalar_t) == 2) {
-      w.init(p, rows, Warp::tile(warp, rows.nrows), lane);
+      w.init(p, rows, Warp::tile(warp, rows.nrows), lane, reinterpret_cast<uint4*>(smem + L.q), team == 0);
     } else {
       w.init(p, rows, warp, lane, reinterpret_cast<float*>(smem + L.q), reinterpret_cast<float*>(smem + L.p));
     }
@@ -967,7 +1010,7 @@ int launch(K kernel, C combine_kernel, const Params& p, int n_tile_slots, cudaSt
 inline int check_schedule(const Params& p) {
   const int G = p.Hkv > 0 ? p.H / p.Hkv : 0;
   if (p.R <= 0 || p.H <= 0 || p.Hkv <= 0 || p.H % p.Hkv != 0 || p.S <= 0) return cudaErrorInvalidValue;
-  if (p.tq < 1 || p.tq > kMaxQuery || p.gh < 1 || p.gh > G || p.tq * p.gh > kMaxRows) return cudaErrorInvalidValue;
+  if (p.tq < 1 || p.tq > kMaxQuery || p.gh < 1 || p.gh > G || p.tq * p.gh > max_rows(p.D)) return cudaErrorInvalidValue;
   if (p.n_hg != (G + p.gh - 1) / p.gh) return cudaErrorInvalidValue;
   if (p.split_slots <= 0 || p.split_slots % kKeys != 0 || p.n_split != (p.S + p.split_slots - 1) / p.split_slots)
     return cudaErrorInvalidValue;

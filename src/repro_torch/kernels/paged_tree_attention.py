@@ -24,7 +24,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.tree_attention import launch_schedule, mask_vectorizable, partials
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)  # the instances compiled in csrc/paged_tree_attention.cu
+_HEAD_DIMS = (64, 128, 256)  # the instances compiled in csrc/paged_tree_attention.cu
 _ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 14 + [ctypes.c_void_p]
 
 
@@ -56,7 +56,7 @@ def _launch(kernel, q, k_arena, v_arena, tbl, owner, mask, R, T, Bm) -> torch.Te
     block, Hkv = k_arena.shape[1], k_arena.shape[2]
     S = tbl.shape[1] * block
     out = torch.empty_like(q)
-    tq, gh, split_slots, n_split = launch_schedule(H, Hkv, S)
+    tq, gh, split_slots, n_split = launch_schedule(H, Hkv, S, D)
     with torch.cuda.device(q.device):
         part_ml, part_acc, _keep = partials(n_split, R, H, D, q.device)
         stream = torch.cuda.current_stream().cuda_stream

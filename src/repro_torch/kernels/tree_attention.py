@@ -25,27 +25,36 @@ import torch
 from repro_torch.kernels import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)  # the instances compiled in csrc/tree_attention.cu
+_HEAD_DIMS = (64, 128, 256)  # the instances compiled in csrc/tree_attention.cu
 _ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
 
-MAX_SCORE_ROWS = 128  # query heads x query rows per CTA: 8 warps of one m16 tile
+MAX_SCORE_ROWS = 128  # query heads x query rows per CTA: 8 warps of one m16 tile (max_score_rows)
 MAX_QUERY_ROWS = 32   # query rows per CTA (one 32-key mask word each in shared memory)
 SPLIT_ABOVE = 4096    # caches longer than this split their keys over CTAs
 SPLIT_SLOTS = 2048    # keys per split then
 CHUNK = 32            # keys per staged chunk
 
 
-def launch_schedule(H: int, Hkv: int, S: int) -> tuple[int, int, int, int]:
+def max_score_rows(D: int) -> int:
+    """Score rows a CTA holds at head_dim D: MAX_SCORE_ROWS, or half at
+    D 256, whose fp32 queries and staged K/V of 128 rows would not fit the
+    card's 227 KB of shared memory (csrc/tree_attention_body.cuh
+    ``max_rows``)."""
+    return MAX_SCORE_ROWS if D <= 128 else MAX_SCORE_ROWS // 2
+
+
+def launch_schedule(H: int, Hkv: int, S: int, D: int = 128) -> tuple[int, int, int, int]:
     """(tq, gh, split_slots, n_split) of a launch over S key slots.
 
     A CTA serves gh query heads of one KV head (all G = H / Hkv unless G
-    exceeds MAX_SCORE_ROWS) for a tile of up to tq query rows, gh * tq <=
-    MAX_SCORE_ROWS.  At S <= SPLIT_ABOVE the keys are one range (S rounded
+    exceeds max_score_rows(D)) for a tile of up to tq query rows, gh * tq <=
+    max_score_rows(D).  At S <= SPLIT_ABOVE the keys are one range (S rounded
     up to whole chunks) and a call is one launch.  Past it they split into
     ranges of SPLIT_SLOTS slots and a combine launch merges them.  Shapes
     only: never the mask nor the owners."""
-    gh = min(H // Hkv, MAX_SCORE_ROWS)
-    tq = max(1, min(MAX_QUERY_ROWS, MAX_SCORE_ROWS // gh))
+    rows = max_score_rows(D)
+    gh = min(H // Hkv, rows)
+    tq = max(1, min(MAX_QUERY_ROWS, rows // gh))
     if S <= SPLIT_ABOVE:
         return tq, gh, -(-S // CHUNK) * CHUNK, 1
     return tq, gh, SPLIT_SLOTS, -(-S // SPLIT_SLOTS)
@@ -94,7 +103,7 @@ def tree_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.data_ptr() % 16 or v.data_ptr() % 16:
         raise ValueError("tree_attention: k and v must start on a 16-byte boundary (16-byte loads)")
     out = torch.empty_like(q)
-    tq, gh, split_slots, n_split = launch_schedule(H, Hkv, S)
+    tq, gh, split_slots, n_split = launch_schedule(H, Hkv, S, D)
     with torch.cuda.device(q.device):
         part_ml, part_acc, _keep = partials(n_split, B * T, H, D, q.device)
         stream = torch.cuda.current_stream().cuda_stream

@@ -6,6 +6,8 @@
         --streams 8 --requests 12 --max-new 32
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --smoke \
         --arch qwen3-moe-235b-a22b --streams 8
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --smoke \
+        --arch recurrentgemma-2b --streams 4
 
 The counterpart of src/repro/launch/serve.py: builds a target and a
 proportionally smaller draft of the same family with random weights drawn
@@ -13,7 +15,9 @@ from ``--seed``, serves synthetic requests through the single-stream
 speculative engine, or with ``--streams N`` through the continuous-batching
 engine over an N-row pool (paged, ragged auto-dispatch and pipelined
 stepping by default, as in the JAX launcher), and reports block efficiency
-and throughput.  It runs on
+and throughput.  The SSM and hybrid targets (mamba2-2.7b,
+recurrentgemma-2b) take the replay target-pass strategy; a pure SSM pool
+has no KV to page.  It runs on
 ``--device cuda`` (the default) and raises when no CUDA device is present;
 ``--device cpu`` runs every kernel's plain version instead.
 """
@@ -35,9 +39,18 @@ from repro_torch.serving.engine import EngineConfig, SamplingParams, Speculative
 def make_draft_cfg(cfg):
     """A ~10x smaller draft of the same family (paper: ~9:1 .. 100:1).
 
-    The dense and MoE rules of src/repro/launch/serve.py ``make_draft_cfg``
-    (an MoE draft keeps half the experts and top_k capped at that); the
-    other families' rules come with the slices that port those families."""
+    The rules of src/repro/launch/serve.py ``make_draft_cfg``: an SSM draft
+    keeps a quarter of the layers at half the width; a hybrid draft keeps
+    half the (rec, rec, attn) groups (at least one) at half the width, lru
+    width and d_ff, with the target's heads; an MoE draft keeps half the
+    experts and top_k capped at that."""
+    if cfg.arch_type == "ssm":
+        return cfg.replace(name=cfg.name + "-draft", n_layers=max(cfg.n_layers // 4, 1),
+                           d_model=max(cfg.d_model // 2, 64))
+    if cfg.arch_type == "hybrid":
+        nl = max((cfg.n_layers // cfg.hybrid_attn_every) // 2 * cfg.hybrid_attn_every, cfg.hybrid_attn_every)
+        return cfg.replace(name=cfg.name + "-draft", n_layers=nl, d_model=max(cfg.d_model // 2, 64),
+                           lru_width=max(cfg.lru_d // 2, 64), d_ff=max(cfg.d_ff // 2, 64))
     kw = dict(
         name=cfg.name + "-draft",
         n_layers=max(cfg.n_layers // 4, 1),

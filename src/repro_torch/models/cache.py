@@ -1,4 +1,4 @@
-"""KV cache structures and pools: the attention family of src/repro/models/cache.py.
+"""KV and recurrent-state caches and pools: the counterpart of src/repro/models/cache.py.
 
 Attention caches are ring buffers of size ``Smax``: slot = position % Smax,
 with absolute positions stored so masks can express causality uniformly.
@@ -26,6 +26,13 @@ Layouts (leading layer axis L):
     clamp to it, so writes through an unmapped (or idle-row) table land in
     lanes no mask admits (pos stays -1 for unmapped logical slots).
 
+  * recurrent state (leading layer axis L; ``len`` () or (B,))::
+
+        ssm:    state: (L, B, H, P, N) fp32;  conv: (L, B, K-1, C)
+        hybrid: rec_state: (G, 2, B, D) fp32;  rec_conv: (G, 2, B, 3, D);
+                tail_state: (L % 3, B, D);  tail_conv: (L % 3, B, 3, D);
+                attn over the G local-attention layers (ring or paged)
+
 The ring-compaction commit contract is documented in
 src/repro/models/cache.py and implemented by
 serving/serve_step.make_pool_commit_step.
@@ -36,7 +43,9 @@ Where this module writes in place (the JAX package returns new arrays):
     into the cache's k/v (or arena) tensors, so a forward pass mutates the
     k/v of the cache it is given, while ``pos``, ``len`` and ``block_tbl``
     come back as new tensors;
-  * ``scatter_streams`` writes the rows' k/v into the pool's k/v tensors;
+  * ``scatter_streams`` writes the rows' k/v into the pool's k/v tensors
+    (recurrent leaves are never written in place: every pass and helper
+    returns them as new tensors);
   * ``merge_streams`` of two caches that share their k/v tensors (a pass
     and the cache it wrote into) keeps those tensors: a frozen row's write
     stays in its lane.  Every such lane lies at or past the row's ``len``,
@@ -246,14 +255,53 @@ def ragged_tree_mask(pos: torch.Tensor, q_pos: torch.Tensor, owner: torch.Tensor
 
 # ---------------------------------------------------------- stream algebra ---
 #
-# The port's caches hold the attention family only: {"attn": {...}}.  k/v
-# carry the stream axis at 1, per-stream pos/len at 0; lockstep pos/len have
-# none.
+# Every cache tensor has at most one stream (batch) axis, whose position
+# depends on the family (src/repro/models/cache.py ``_walk``):
+#
+#   attn k/v: 1;  attn pos/len: 0 per stream, none lockstep;
+#   state, conv, tail_state, tail_conv (ssm, hybrid tail): 1;
+#   rec_state, rec_conv (the hybrid's groups): 2;  top-level len: 0 per
+#   stream, none lockstep.
+#
+# The helpers below return new tensors for every leaf except where they say
+# so: scatter_streams writes the pool's attention k/v in place.
+
+_AXIS1 = ("state", "conv", "tail_state", "tail_conv")
 
 
-def _stream_axes(attn: dict) -> dict:
-    return {"k": 1, "v": 1, "pos": 0 if attn["pos"].dim() == 2 else None,
-            "len": 0 if attn["len"].dim() == 1 else None}
+def _axis(key: str, t: torch.Tensor, in_attn: bool):
+    """The stream axis of leaf ``key`` (inside ``attn`` or at the top level),
+    None for a lockstep pos/len."""
+    if in_attn and key in ("k", "v"):
+        return 1
+    if in_attn and key == "pos":
+        return 0 if t.dim() == 2 else None
+    if key == "len":
+        return 0 if t.dim() == 1 else None
+    if key in ("rec_state", "rec_conv"):
+        return 2
+    if key in _AXIS1:
+        return 1
+    raise KeyError(f"cache leaf {key!r} has no known stream axis")
+
+
+def _walk(cache: dict, other: dict | None, fn) -> dict:
+    """fn(tensor, other's tensor or None, name, stream axis or None) over
+    every leaf, block_tbl excluded (paged attention is handled apart)."""
+    out = {}
+    for key, val in cache.items():
+        o = None if other is None else other[key]
+        if key == "attn":
+            out[key] = {n: fn(t, None if o is None else o[n], n, _axis(n, t, True))
+                        for n, t in val.items() if n != "block_tbl"}
+        else:
+            out[key] = fn(val, o, key, _axis(key, val, False))
+    return out
+
+
+def _rest(cache: dict) -> dict:
+    """Every leaf but the attention component (handled apart when paged)."""
+    return {key: val for key, val in cache.items() if key != "attn"}
 
 
 def _rows_tensor(rows, device) -> torch.Tensor:
@@ -283,17 +331,25 @@ def _paged_scatter_attn(attn: dict, rows_attn: dict, slots: torch.Tensor) -> dic
     return {"k": k, "v": v, "pos": pos, "len": length, "block_tbl": attn["block_tbl"]}
 
 
+def _device(cache: dict):
+    leaf = cache["attn"]["k"] if "attn" in cache else cache["len"]
+    return leaf.device
+
+
 def gather_streams(cache: dict, rows) -> dict:
     """Select stream rows (a smaller cache over ``rows``, in order; new
     tensors).  Paged caches come back DENSE: per-stream rings over the
     rows' logical views, which ``scatter_streams`` writes back."""
-    attn = cache["attn"]
-    rows = _rows_tensor(rows, attn["k"].device)
+    rows = _rows_tensor(rows, _device(cache))
+
+    def take(t, _, name, ax):
+        return t if ax is None else t.index_select(ax, rows)
+
     if is_paged(cache):
-        return {"attn": _paged_gather_attn(attn, rows)}
-    axes = _stream_axes(attn)
-    return {"attn": {n: t if axes[n] is None else t.index_select(axes[n], rows)
-                     for n, t in attn.items()}}
+        out = _walk(_rest(cache), None, take)
+        out["attn"] = _paged_gather_attn(cache["attn"], rows)
+        return out
+    return _walk(cache, None, take)
 
 
 def fork_streams(cache: dict, K: int) -> dict:
@@ -304,86 +360,98 @@ def fork_streams(cache: dict, K: int) -> dict:
     branches write independent speculative KV, which a shared arena cannot
     hold."""
     if is_paged(cache):
-        cache = gather_streams(cache, range(cache["attn"]["len"].shape[0]))
-    attn = cache["attn"]
-    axes = _stream_axes(attn)
-    return {"attn": {n: t if axes[n] is None else t.repeat_interleave(K, dim=axes[n])
-                     for n, t in attn.items()}}
+        n = cache["attn"]["len"].shape[0]
+        cache = gather_streams(cache, range(n))
+    return _walk(cache, None, lambda t, _, n, ax: t if ax is None else t.repeat_interleave(K, dim=ax))
 
 
 def scatter_streams(pool: dict, rows_cache: dict, slots) -> dict:
     """Write ``rows_cache`` stream rows into ``pool`` at ``slots`` (pool row
-    indices, one per rows_cache row): k/v in place, pos/len as new tensors.
-    A paged pool takes dense per-stream rows (the ``gather_streams`` layout)
-    and routes them through its block tables."""
-    attn, rows_attn = pool["attn"], rows_cache["attn"]
-    slots = _rows_tensor(slots, attn["k"].device)
-    if is_paged(pool):
-        return {"attn": _paged_scatter_attn(attn, rows_attn, slots)}
-    axes = _stream_axes(attn)
-    out = {}
-    for n, t in attn.items():
-        ax = axes[n]
+    indices, one per rows_cache row): the attention k/v in place, every
+    other leaf (pos/len, recurrent state) as a new tensor.  A paged pool
+    takes dense per-stream rows (the ``gather_streams`` layout) and routes
+    them through its block tables."""
+    slots = _rows_tensor(slots, _device(pool))
+
+    def put(dst, src, name, ax):
         if ax is None:
-            out[n] = t
-            continue
-        dst = t if n in ("k", "v") else t.clone()
-        dst.index_copy_(ax, slots, rows_attn[n].to(dst.dtype))
-        out[n] = dst
-    return {"attn": out}
+            return dst
+        if name not in ("k", "v"):
+            dst = dst.clone()
+        dst.index_copy_(ax, slots, src.to(dst.dtype))
+        return dst
+
+    if is_paged(pool):
+        out = _walk(_rest(pool), _rest(rows_cache), put)
+        out["attn"] = _paged_scatter_attn(pool["attn"], rows_cache["attn"], slots)
+        return out
+    return _walk(pool, rows_cache, put)
 
 
 def concat_streams(caches: list[dict]) -> dict:
     """Concatenate per-stream caches along their stream axis (new tensors).
-    Arrays without a stream axis are taken from the first cache."""
-    first = caches[0]["attn"]
-    axes = _stream_axes(first)
-    return {"attn": {n: first[n] if axes[n] is None else torch.cat([c["attn"][n] for c in caches], axes[n])
-                     for n in first}}
+    Tensors without a stream axis are taken from the first cache.  Used to
+    fuse a step's row groups into one ``scatter_streams``."""
+    out = {}
+    for key, val in caches[0].items():
+        if key == "attn":
+            out[key] = {n: t if _axis(n, t, True) is None else torch.cat([c[key][n] for c in caches],
+                                                                          _axis(n, t, True))
+                        for n, t in val.items() if n != "block_tbl"}
+        else:
+            ax = _axis(key, val, False)
+            out[key] = val if ax is None else torch.cat([c[key] for c in caches], ax)
+    return out
 
 
 def merge_streams(new: dict, old: dict, keep) -> dict:
     """Per-stream select: row b of the result is ``new``'s where keep[b],
-    else ``old``'s.  The freeze primitive of padded lockstep stepping.
+    else ``old``'s.  The freeze primitive of padded lockstep stepping: rows
+    whose stream has no real token this step keep their exact prior state.
 
     k/v that ``new`` shares with ``old`` (a pass wrote into the cache it was
     given) are kept as they are: the frozen rows' writes stay in lanes whose
-    pos is -1 (module docstring).  Distinct k/v are selected by row, or by
-    physical block in a paged arena (a block takes ``new``'s content iff a
-    keep row maps it)."""
-    an, ao = new["attn"], old["attn"]
-    keep = torch.as_tensor(keep, device=an["k"].device).bool()
-    axes = _stream_axes(an)
+    pos is -1 (module docstring).  Distinct tensors are selected by row, or,
+    for the k/v of a paged arena, by physical block (a block takes
+    ``new``'s content iff a keep row maps it)."""
+    keep = torch.as_tensor(keep, device=_device(new)).bool()
 
-    def sel(name):
-        n, o = an[name], ao[name]
-        if n is o or axes[name] is None:
+    def sel(n, o, name, ax):
+        if n is o or ax is None:
             return n
         shape = [1] * n.dim()
-        shape[axes[name]] = keep.shape[0]
+        shape[ax] = keep.shape[0]
         return torch.where(keep.reshape(shape), n, o)
 
-    if is_paged(new):
-        tbl = an["block_tbl"]
-        out = {"pos": sel("pos"), "len": sel("len"),
-               "block_tbl": torch.where(keep[:, None], tbl, ao["block_tbl"])}
-        if an["k"] is ao["k"] and an["v"] is ao["v"]:
-            out["k"], out["v"] = an["k"], an["v"]
-        else:
-            owned = torch.zeros((an["k"].shape[1],), dtype=torch.int32, device=tbl.device)
-            owned.index_add_(0, tbl.long().clamp_min(0).reshape(-1),
-                             (keep[:, None] & (tbl >= 0)).to(torch.int32).reshape(-1))
-            bsel = (owned > 0)[None, :, None, None, None]
-            out["k"] = torch.where(bsel, an["k"], ao["k"])
-            out["v"] = torch.where(bsel, an["v"], ao["v"])
-        return {"attn": out}
-    return {"attn": {name: sel(name) for name in an}}
+    if not is_paged(new):
+        return _walk(new, old, sel)
+    out = _walk(_rest(new), _rest(old), sel)
+    an, ao = new["attn"], old["attn"]
+    tbl = an["block_tbl"]
+    attn = {"pos": sel(an["pos"], ao["pos"], "pos", 0), "len": sel(an["len"], ao["len"], "len", 0),
+            "block_tbl": torch.where(keep[:, None], tbl, ao["block_tbl"])}
+    if an["k"] is ao["k"] and an["v"] is ao["v"]:
+        attn["k"], attn["v"] = an["k"], an["v"]
+    else:
+        owned = torch.zeros((an["k"].shape[1],), dtype=torch.int32, device=tbl.device)
+        owned.index_add_(0, tbl.long().clamp_min(0).reshape(-1),
+                         (keep[:, None] & (tbl >= 0)).to(torch.int32).reshape(-1))
+        bsel = (owned > 0)[None, :, None, None, None]
+        attn["k"] = torch.where(bsel, an["k"], ao["k"])
+        attn["v"] = torch.where(bsel, an["v"], ao["v"])
+    out["attn"] = attn
+    return out
 
 
 def clone_cache(cache: dict) -> dict:
-    """A copy whose k/v a forward pass may write without touching ``cache``."""
-    return {key: ({n: t.clone() for n, t in val.items()} if isinstance(val, dict) else val.clone())
-            for key, val in cache.items()}
+    """A copy a forward pass (or a scatter) may write without touching
+    ``cache``: the attention k/v, the only tensors this package writes in
+    place, are copied; every other leaf is shared (each write of it makes a
+    new tensor)."""
+    out = dict(cache)
+    if "attn" in cache:
+        out["attn"] = {**cache["attn"], "k": cache["attn"]["k"].clone(), "v": cache["attn"]["v"].clone()}
+    return out
 
 
 # ------------------------------------------------------------------ pools ---
@@ -394,14 +462,43 @@ class CachePool:
     of ``n_slots`` rows plus free-row bookkeeping, so streams join (prefill a
     1-row cache, scatter it in) and leave (release the row) while every
     model call sees the same (n_slots, ...) shapes.  Rows are handed out
-    lowest index first.  (The JAX pool's double-buffered frames serve
-    recurrent drafts only, which this package does not run yet: ROADMAP
-    queue 1 item 9.)"""
+    lowest index first.  A pure recurrent (ssm) cache, which has no
+    attention component, is always this ring pool.
+
+    Frames (the pipelined engine's rewind of a recurrent draft pool):
+    between ``begin_frame()`` and ``drop_frame()`` the pool holds a back
+    frame, the cache as of the frame start, and ``rollback_frame()``
+    restores it.  JAX's frame is a reference to an immutable pytree; here
+    the ingest writes the pool's attention k/v in place, so the frame is a
+    ``clone_cache`` copy (k/v copied, every other leaf shared: it is only
+    ever replaced)."""
 
     def __init__(self, cache: dict, n_slots: int):
         self.cache = cache
         self.n_slots = n_slots
         self._free = list(range(n_slots))
+        self._back: dict | None = None
+
+    @property
+    def frame_held(self) -> bool:
+        return self._back is not None
+
+    def begin_frame(self) -> None:
+        """Hold a copy of the current cache as the back frame (one at a time)."""
+        if self._back is not None:
+            raise RuntimeError("frame already held")
+        self._back = clone_cache(self.cache)
+
+    def drop_frame(self) -> None:
+        """Release the back frame (the step it guarded is being finished)."""
+        self._back = None
+
+    def rollback_frame(self) -> None:
+        """Restore the back frame as the live cache: every write since
+        ``begin_frame`` is discarded."""
+        if self._back is None:
+            raise RuntimeError("no frame to roll back")
+        self.cache, self._back = self._back, None
 
     def invalidate_from(self, starts: dict[int, int]) -> None:
         """Erase rows' speculative attention writes: for each {row: start},

@@ -1,21 +1,25 @@
-"""The GQA decoder stacks, dense and MoE: ``init_params``, ``forward``,
-``init_cache``.
+"""The decoder stacks of every family this package runs: ``init_params``,
+``forward``, ``init_cache``.
 
-The counterpart of the dense and MoE branches of
+The counterpart of the dense, MoE, SSM and hybrid branches of
 src/repro/models/transformer.py.  Parameters are plain dicts of tensors with
 the JAX nesting, layer-stacked on a leading axis
 (``params["blocks"]["attn"]["wq"]`` is (L, d, H*hd)), so the bridge maps one
 to one.  An interleaved MoE stack (``moe_every`` = m > 1, Llama-4 style)
 nests ``blocks.dense{i}`` (i < m - 1) and ``blocks.moe``, each stacked over
-the n_layers // m groups; layer i of group g is cache layer g*m + i.  Each
+the n_layers // m groups; layer i of group g is cache layer g*m + i.  The
+SSM stack (Mamba-2) is ``blocks.{ln, ssm}``; the hybrid (RecurrentGemma)
+stacks (rec, rec, local-attn) groups as ``blocks.{rec0, rec1, attn}`` and
+the n_layers % 3 recurrent layers past the last group as ``tail``.  Each
 ``lax.scan`` over layers is a Python loop over layer views.
 
 Every masked attention pass goes through ``kernels.ops``, as the JAX
 ``attention_impl="pallas"`` path does: ``gqa_tree_attention`` over a ring
 cache (or none), ``gqa_paged_tree_attention`` over a paged pool and
-``gqa_ragged_tree_attention`` for the ragged tree pass.  A pass whose
-tensors lie on the CPU takes the plain versions, one on the card launches
-the Hopper kernels, once per layer.
+``gqa_ragged_tree_attention`` for the ragged tree pass.  The hybrid's
+local-attention layers take the same kernels under the local-window mask.
+A pass whose tensors lie on the CPU takes the plain versions, one on the
+card launches the Hopper kernels, once per attention layer.
 """
 from __future__ import annotations
 
@@ -44,13 +48,17 @@ from repro_torch.models.layers import (
     swiglu_init,
 )
 from repro_torch.models.moe import init_moe, moe_apply
+from repro_torch.models.rglru import init_rglru, rglru_apply
+from repro_torch.models.ssm import init_ssm, ssm_apply
+
+RECURRENT = ("ssm", "hybrid")
 
 
 def _require_ported(cfg):
-    if cfg.arch_type not in ("dense", "moe"):
+    if cfg.arch_type not in ("dense", "moe", "ssm", "hybrid"):
         raise NotImplementedError(
-            f"arch_type {cfg.arch_type!r}: this package runs the dense and moe families so far "
-            "(ROADMAP queue 1 items 9 and 10 port the others)")
+            f"arch_type {cfg.arch_type!r}: this package runs the dense, moe, ssm and hybrid families "
+            "so far (ROADMAP queue 1 item 10 ports the encoder-decoder and VLM families)")
 
 
 # ----------------------------------------------------------------- params ----
@@ -89,10 +97,21 @@ def _attn_mlp_layer_init(cfg, gen: torch.Generator, moe: bool = False, d_ff: int
     }
 
 
+def _rec_layer_init(cfg, gen: torch.Generator) -> dict:
+    dev = gen.device
+    return {
+        "ln": torch.zeros((cfg.d_model,), dtype=torch.float32, device=dev),
+        "rec": init_rglru(cfg, gen),
+        "ln_m": torch.zeros((cfg.d_model,), dtype=torch.float32, device=dev),
+        "mlp": swiglu_init(cfg, gen),
+    }
+
+
 def init_params(cfg, gen: torch.Generator) -> dict:
     """Random weights drawn on ``gen.device``: normal x 0.02 for ``embed``,
-    normal x 1/sqrt(d_in) for dense layers and experts, zero norm scales and
-    the MoE router in fp32."""
+    normal x 1/sqrt(d_in) for dense layers and experts, zero norm scales,
+    the MoE router and the SSM and RG-LRU gates, decays and norms in fp32
+    (models/ssm.py, models/rglru.py)."""
     _require_ported(cfg)
     dt, dev = cfg.tdtype, gen.device
     embed = torch.randn((cfg.vocab, cfg.d_model), generator=gen, device=dev, dtype=torch.float32)
@@ -115,25 +134,45 @@ def init_params(cfg, gen: torch.Generator) -> dict:
             return gp
 
         params["blocks"] = _stack_init(macro_init, cfg.n_layers // m)
+    elif cfg.arch_type == "ssm":
+        params["blocks"] = _stack_init(
+            lambda: {"ln": torch.zeros((cfg.d_model,), dtype=torch.float32, device=dev), "ssm": init_ssm(cfg, gen)},
+            cfg.n_layers)
+    elif cfg.arch_type == "hybrid":
+        g = cfg.hybrid_attn_every
+        n_groups, rem = divmod(cfg.n_layers, g)
+
+        def group_init():
+            gp = {f"rec{i}": _rec_layer_init(cfg, gen) for i in range(g - 1)}
+            gp["attn"] = _attn_mlp_layer_init(cfg, gen)
+            return gp
+
+        params["blocks"] = _stack_init(group_init, n_groups)
+        if rem:
+            params["tail"] = _stack_init(lambda: _rec_layer_init(cfg, gen), rem)
     else:
         moe = cfg.arch_type == "moe"
         params["blocks"] = _stack_init(lambda: _attn_mlp_layer_init(cfg, gen, moe=moe), cfg.n_layers)
     return params
 
 
+def _layer(tree: dict, i: int) -> dict:
+    return _map(lambda t: t[i], tree)
+
+
 def _layers(params: dict, cfg):
-    """(layer params, is_moe) in cache-layer order."""
+    """(layer params, is_moe) in cache-layer order (dense and MoE stacks)."""
     blocks = params["blocks"]
     if cfg.arch_type == "moe" and cfg.moe_every > 1:
         m = cfg.moe_every
         for g in range(cfg.n_layers // m):
             for i in range(m - 1):
-                yield _map(lambda t: t[g], blocks[f"dense{i}"]), False
-            yield _map(lambda t: t[g], blocks["moe"]), True
+                yield _layer(blocks[f"dense{i}"], g), False
+            yield _layer(blocks["moe"], g), True
     else:
         moe = cfg.arch_type == "moe"
         for i in range(cfg.n_layers):
-            yield _map(lambda t: t[i], blocks), moe
+            yield _layer(blocks, i), moe
 
 
 # ----------------------------------------------------------------- blocks ----
@@ -191,22 +230,34 @@ def _attn_mlp_block(p, cfg, x, positions, mask, layer_cache, ragged=None, moe=Fa
     return x + swiglu(p["mlp"], h), None
 
 
+def _rec_block(p, cfg, x, cache):
+    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    y, new_cache = rglru_apply(p["rec"], cfg, h, cache)
+    x = x + y
+    h = rms_norm(x, p["ln_m"], cfg.norm_eps)
+    return x + swiglu(p["mlp"], h), new_cache
+
+
 # ---------------------------------------------------------------- forward ----
 
 
 def _mk_masks(cfg, mode, T, pos, positions, anc, slots):
-    """The full-attention mask of a pass, (1 or B, 1, T, S).
+    """(full-attention mask, local-window mask) of a pass, each (1 or B, 1,
+    T, S): the dense and MoE stacks read the first, the hybrid's attention
+    layers the second, and the one a stack does not read is None.
 
     ``pos`` is the slot->absolute-position table *after* writing the new
-    tokens, so queries can see themselves and each other causally.  (The
-    JAX version also returns the local-window mask of the hybrid family.)
+    tokens, so queries can see themselves and each other causally.
     """
-    win = cfg.window if cfg.attention == "sliding_window" else 0
+    hybrid = cfg.arch_type == "hybrid"
+    win = cfg.local_window if hybrid else (cfg.window if cfg.attention == "sliding_window" else 0)
     if mode == "full":
-        return causal_mask(T, win, device=positions.device)
-    if mode == "decode":
-        return attn_mask_from_pos(pos, positions, win)
-    return tree_mask_from_pos(pos, positions, anc, slots, win)
+        m = causal_mask(T, win, device=positions.device)
+    elif mode == "decode":
+        m = attn_mask_from_pos(pos, positions, win)
+    else:
+        m = tree_mask_from_pos(pos, positions, anc, slots, win)
+    return (None, m) if hybrid else (m, None)
 
 
 def _tree_depths(anc: torch.Tensor, per_stream: bool = False) -> torch.Tensor:
@@ -247,7 +298,11 @@ def forward(params: dict, cfg, tokens: torch.Tensor, *, mode: str = "full",
                    ring cache, where it drops padding writes; the batched
                    engine here goes ragged on a paged pool only.)
     The new K/V are written into ``cache``'s k/v in place (models/cache.py);
-    ``new_cache`` shares them and carries new pos/len tensors.
+    ``new_cache`` shares them and carries new pos/len tensors.  Recurrent
+    state (the SSM's ``state``/``conv``, the hybrid's ``rec_*``/``tail_*``)
+    comes back as new tensors; it integrates every token of the pass, so
+    ``lens`` masks attention state only and the recurrent engines never pad
+    (serving/batch_engine.py).
     """
     _require_ported(cfg)
     dt = cfg.tdtype
@@ -255,12 +310,18 @@ def forward(params: dict, cfg, tokens: torch.Tensor, *, mode: str = "full",
     B, T, _ = x.shape
     dev = x.device
 
-    length = cache["attn"]["len"] if cache is not None else torch.zeros((), dtype=torch.int32, device=dev)
+    has_attn = cfg.arch_type != "ssm"
+    if cache is None:
+        length = torch.zeros((), dtype=torch.int32, device=dev)
+    else:
+        length = cache["attn"]["len"] if has_attn else cache["len"]
     per_stream = length.dim() == 1
     owner = None
     if ragged is not None:
         if mode != "tree" or anc is not None or lens is not None or cache is None:
             raise ValueError("ragged is a tree pass over a cache, without anc or lens")
+        if cfg.arch_type not in ("dense", "moe"):
+            raise ValueError(f"the ragged tree pass runs the dense and moe families, not {cfg.arch_type!r}")
         if not (per_stream and "block_tbl" in cache["attn"]):
             raise NotImplementedError("the ragged tree pass needs a paged per-stream cache in this package")
         owner = ragged["owner"]
@@ -271,11 +332,12 @@ def forward(params: dict, cfg, tokens: torch.Tensor, *, mode: str = "full",
         positions = length[:, None] + (offs if offs.dim() == 2 else offs[None, :]) if per_stream \
             else length + offs
 
-    new_cache = None
+    new_cache = None if cache is None else dict(cache)
     slots = page_tbl = None
-    if cache is not None:
-        if mode == "full":
-            mode = "decode"  # prefill == appending T tokens causally to an empty cache
+    mask_full = mask_local = None
+    if cache is not None and mode == "full":
+        mode = "decode"  # prefill == appending T tokens causally to an empty cache
+    if has_attn and cache is not None:
         a = cache["attn"]
         page_tbl = a.get("block_tbl")
         smax = a["pos"].shape[-1]
@@ -288,7 +350,7 @@ def forward(params: dict, cfg, tokens: torch.Tensor, *, mode: str = "full",
             new_pos = pos_ext[:, :smax].contiguous()
             new_len = length + ragged["counts"]
             win = cfg.window if cfg.attention == "sliding_window" else 0
-            mask = ragged_tree_mask(new_pos, q_pos, owner, slots, ragged["parent"], win)
+            mask_full = ragged_tree_mask(new_pos, q_pos, owner, slots, ragged["parent"], win)
             owner = torch.where(local >= 0, owner, -1)  # the kernel skips padding lanes
         else:
             slots = cache_slots(length, T, smax)
@@ -303,20 +365,60 @@ def forward(params: dict, cfg, tokens: torch.Tensor, *, mode: str = "full",
             else:
                 new_pos[slots.long()] = pos_vals.to(new_pos.dtype)
             new_len = length + (T if lens is None else lens)
-            mask = _mk_masks(cfg, mode, T, new_pos, positions, anc, slots)
+            mask_full, mask_local = _mk_masks(cfg, mode, T, new_pos, positions, anc, slots)
         new_attn = {"k": a["k"], "v": a["v"], "pos": new_pos, "len": new_len.to(torch.int32)}
         if page_tbl is not None:
             new_attn["block_tbl"] = page_tbl
-        new_cache = {**cache, "attn": new_attn}
-    else:
-        mask = _mk_masks(cfg, "full", T, None, positions, None, None)
+        new_cache["attn"] = new_attn
+    elif has_attn:
+        mask_full, mask_local = _mk_masks(cfg, "full", T, None, positions, None, None)
 
     aux_total = torch.zeros((), dtype=torch.float32, device=dev)
-    for i, (pl, moe) in enumerate(_layers(params, cfg)):
-        layer_cache = None if cache is None else (cache["attn"]["k"][i], cache["attn"]["v"][i], slots, page_tbl)
-        x, aux = _attn_mlp_block(pl, cfg, x, positions, mask, layer_cache, owner, moe)
-        if aux is not None:
-            aux_total = aux_total + aux
+    if cfg.arch_type in ("dense", "moe"):
+        for i, (pl, moe) in enumerate(_layers(params, cfg)):
+            layer_cache = None if cache is None else (cache["attn"]["k"][i], cache["attn"]["v"][i], slots, page_tbl)
+            x, aux = _attn_mlp_block(pl, cfg, x, positions, mask_full, layer_cache, owner, moe)
+            if aux is not None:
+                aux_total = aux_total + aux
+    elif cfg.arch_type == "ssm":
+        states, convs = [], []
+        for i in range(cfg.n_layers):
+            pl = _layer(params["blocks"], i)
+            lc = None if cache is None else {"state": cache["state"][i], "conv": cache["conv"][i]}
+            y, nc = ssm_apply(pl["ssm"], cfg, rms_norm(x, pl["ln"], cfg.norm_eps), lc)
+            x = x + y
+            states.append(nc["state"])
+            convs.append(nc["conv"])
+        if cache is not None:
+            new_cache.update(state=torch.stack(states), conv=torch.stack(convs))
+    else:  # hybrid: (rec, rec, local-attn) groups, then the recurrent tail
+        g = cfg.hybrid_attn_every
+        group_states, group_convs = [], []
+        for gi in range(cfg.n_layers // g):
+            pg = _layer(params["blocks"], gi)
+            states, convs = [], []
+            for i in range(g - 1):
+                lc = None if cache is None else {"state": cache["rec_state"][gi, i], "conv": cache["rec_conv"][gi, i]}
+                x, nc = _rec_block(pg[f"rec{i}"], cfg, x, lc)
+                states.append(nc["state"])
+                convs.append(nc["conv"])
+            layer_cache = None if cache is None else (cache["attn"]["k"][gi], cache["attn"]["v"][gi], slots, page_tbl)
+            x, _ = _attn_mlp_block(pg["attn"], cfg, x, positions, mask_local, layer_cache)
+            group_states.append(torch.stack(states))
+            group_convs.append(torch.stack(convs))
+        if cache is not None:
+            new_cache.update(rec_state=torch.stack(group_states), rec_conv=torch.stack(group_convs))
+        if "tail" in params:
+            states, convs = [], []
+            for i in range(cfg.n_layers % g):
+                lc = None if cache is None else {"state": cache["tail_state"][i], "conv": cache["tail_conv"][i]}
+                x, nc = _rec_block(_layer(params["tail"], i), cfg, x, lc)
+                states.append(nc["state"])
+                convs.append(nc["conv"])
+            if cache is not None:
+                new_cache.update(tail_state=torch.stack(states), tail_conv=torch.stack(convs))
+    if cache is not None and cfg.arch_type in RECURRENT:
+        new_cache["len"] = (length + (T if lens is None else lens)).to(torch.int32)
 
     x = rms_norm(x, params["final_ln"], cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
@@ -329,15 +431,38 @@ def forward(params: dict, cfg, tokens: torch.Tensor, *, mode: str = "full",
 
 def init_cache(cfg, batch: int, smax: int, device, per_stream: bool = False,
                page: tuple[int, int] | None = None) -> dict:
-    """Empty decode cache (models/cache.py layouts).  per_stream: per-row
-    pos/len tables (the continuous-batching layout).  page: (pool_blocks,
-    block_size) stores the KV as a paged arena of ``pool_blocks`` usable
-    blocks shared through per-row block tables, with ``smax`` each row's
-    logical capacity; requires per_stream."""
+    """Empty decode cache of the family (models/cache.py layouts).
+    per_stream: per-row pos/len tables (the continuous-batching layout).
+    page: (pool_blocks, block_size) stores the KV as a paged arena of
+    ``pool_blocks`` usable blocks shared through per-row block tables, with
+    ``smax`` each row's logical capacity; requires per_stream.  A pure
+    recurrent (ssm) cache has no KV and ignores it."""
     _require_ported(cfg)
     if page is not None and not per_stream:
         raise ValueError("paged caches are per-stream by construction")
-    if page is not None:
-        return {"attn": init_paged_attn_cache(cfg, cfg.n_layers, batch, page[0], page[1], smax,
-                                              cfg.tdtype, device)}
-    return {"attn": init_attn_cache(cfg, cfg.n_layers, batch, smax, cfg.tdtype, device, per_stream)}
+    dt = cfg.tdtype
+
+    def attn_cache(n_layers):
+        if page is not None:
+            return init_paged_attn_cache(cfg, n_layers, batch, page[0], page[1], smax, dt, device)
+        return init_attn_cache(cfg, n_layers, batch, smax, dt, device, per_stream)
+
+    if cfg.arch_type in ("dense", "moe"):
+        return {"attn": attn_cache(cfg.n_layers)}
+    cache = {"len": torch.zeros((batch,) if per_stream else (), dtype=torch.int32, device=device)}
+    if cfg.arch_type == "ssm":
+        H, P, N = cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state
+        conv_dim = cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
+        cache["state"] = torch.zeros((cfg.n_layers, batch, H, P, N), dtype=torch.float32, device=device)
+        cache["conv"] = torch.zeros((cfg.n_layers, batch, cfg.ssm_conv - 1, conv_dim), dtype=dt, device=device)
+        return cache
+    g = cfg.hybrid_attn_every
+    n_groups, rem = divmod(cfg.n_layers, g)
+    dl = cfg.lru_d
+    cache["rec_state"] = torch.zeros((n_groups, g - 1, batch, dl), dtype=torch.float32, device=device)
+    cache["rec_conv"] = torch.zeros((n_groups, g - 1, batch, 3, dl), dtype=dt, device=device)
+    cache["attn"] = attn_cache(n_groups)
+    if rem:
+        cache["tail_state"] = torch.zeros((rem, batch, dl), dtype=torch.float32, device=device)
+        cache["tail_conv"] = torch.zeros((rem, batch, 3, dl), dtype=dt, device=device)
+    return cache

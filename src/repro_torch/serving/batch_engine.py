@@ -1,15 +1,23 @@
 """Continuous-batching speculative engine: N concurrent streams per model call.
 
 The counterpart of ``BatchedSpeculativeEngine`` in
-src/repro/serving/batch_engine.py with the "tree" target-pass strategy.
-Every active stream is packed into lockstep batched calls: per iteration
-one padded draft-ingest pass, one draft step per tree level, ONE tree-masked
-target pass (padded (B, Tpad), or ragged node-major when that ships fewer
-lanes) and ONE fused commit, with per-stream host verification.  Each
-stream's tokens are exactly those of an independent ``SpeculativeEngine``
-run with the same seed, as long as the model's logits do not change with
-the batch (checked on the CPU in float32 by tests/test_torch_batch.py; on
-the card chip_smoke.py reports it).
+src/repro/serving/batch_engine.py, with both target-pass strategies.
+Every active stream is packed into lockstep batched calls.  The "tree"
+strategy (attention targets) runs per iteration one padded draft-ingest
+pass, one draft step per tree level, ONE tree-masked target pass (padded
+(B, Tpad), or ragged node-major when that ships fewer lanes) and ONE fused
+commit, with per-stream host verification.  The "replay" strategy (SSM and
+hybrid targets) scores each stream's trunk in a decode from the committed
+snapshot, grouped by exact length, the branches in a forked replay, and
+commits by re-advancing the snapshot along the accepted paths, then ONE
+scatter of the rows back.  Recurrent state integrates every token it is
+given, so recurrent passes of several tokens are grouped by exact length
+(the single engine's T) instead of padded to a common one, and one-token
+lockstep steps freeze idle rows with ``merge_streams``.  Each stream's tokens are exactly those
+of an independent ``SpeculativeEngine`` run with the same seed, as long as
+the model's logits do not change with the batch (checked on the CPU in
+float32 by tests/test_torch_batch.py; on the card chip_smoke.py reports
+it).
 
 The pool is paged by default (models/cache.py): KV lives in a shared arena
 of ``block_size``-slot blocks, admission is gated on the free list, dead
@@ -33,23 +41,38 @@ place.  Trunk drafting writes its speculative KV into the draft arena
 (where the JAX engine drafts on a discarded functional copy); those lanes
 lie at or past each row's ``len``, keep pos = -1 in the persisted pool and
 are rewritten by the next ingest before any mask admits them
-(models/cache.py, the frontier invariant).
+(models/cache.py, the frontier invariant).  Recurrent state is never
+written in place.  The replay strategy's trunk decodes gathered copies of
+its rows, and the branch replay forks a dense copy of the pool's rows, so
+the commit re-advances the snapshot as it was, as JAX's ``donate=False``
+scatter keeps it; a
+pipelined step's recurrent draft pool is rewound from a copied back frame
+(``CachePool.begin_frame``).
 
-Not ported here: the replay strategy of recurrent targets (ROADMAP queue 1
-item 9), sharding over a mesh (item 8) and on-device verification (item 11).
+Not ported here: sharding over a mesh (ROADMAP queue 1 item 8) and
+on-device verification (item 11).
 """
 from __future__ import annotations
 
 import time
+from collections import defaultdict
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
+from repro_torch.core.traversal import delayed_structure
 from repro_torch.core.trees import DraftTree
 from repro_torch.core.verify import get_verifier
-from repro_torch.models.cache import PagedCachePool, fork_streams, gather_streams, make_cache_pool
-from repro_torch.models.transformer import forward, init_cache
+from repro_torch.models.cache import (
+    PagedCachePool,
+    concat_streams,
+    fork_streams,
+    gather_streams,
+    make_cache_pool,
+    scatter_streams,
+)
+from repro_torch.models.transformer import RECURRENT, forward, init_cache
 from repro_torch.sampling import warp_logits
 from repro_torch.serving.engine import (
     EngineConfig,
@@ -107,7 +130,10 @@ class BatchRequest:
 class PendingStep:
     """A dispatched-but-unverified iteration.  ``p_dev``/``hid_dev`` are the
     warped tree-pass distributions and hidden states on their way to the
-    host; ``C0`` (committed length minus the pending root) and ``D0`` (the
+    host (tree strategy); the replay strategy's target pass is interleaved
+    with the host, so it arrives as ``snapshot`` (the committed target
+    pool) and ``p_host`` (per-slot float32 distributions).  ``C0``
+    (committed length minus the pending root) and ``D0`` (the attention
     draft pool's pre-ingest length), with the ``rng_state`` snapshots
     (pipelined mode), are the rewind coordinates of ``abort_step``.
     ``roffs`` is ({slot: (offset, n_nodes)}, Npad) for a ragged pass, None
@@ -122,6 +148,8 @@ class PendingStep:
     C0: dict[int, int]
     p_dev: HostCopy | None = None
     hid_dev: HostCopy | None = None
+    snapshot: dict | None = None
+    p_host: dict | None = None
     rng_state: dict | None = None
     D0: dict[int, int] | None = None
     roffs: object = None
@@ -130,12 +158,14 @@ class PendingStep:
 
 @dataclass
 class VerifiedStep:
-    """``verify_step``'s per-stream accept/correction decisions."""
+    """``verify_step``'s per-stream accept/correction decisions; the
+    replay strategy's ``commit_step`` fills ``hid_last``."""
 
     pending: PendingStep
     accepted: dict[int, list]
     corr: dict[int, int]
     node_paths: dict | None = None
+    hid_last: dict | None = None
 
 
 class BatchedSpeculativeEngine:
@@ -159,9 +189,6 @@ class BatchedSpeculativeEngine:
             raise ValueError(f"need at least one pool slot, got {n_slots}")
         if mesh is not None or shard_id:
             raise NotImplementedError("sharding the pool over a mesh is not ported: ROADMAP queue 1 item 8")
-        if target_cfg.arch_type in ("ssm", "hybrid") or draft_cfg.arch_type in ("ssm", "hybrid"):
-            raise NotImplementedError("the replay strategy and recurrent drafts are not ported: "
-                                      "ROADMAP queue 1 item 9")
         if ecfg.verify_on_device:
             raise NotImplementedError("on-device verification is not ported: ROADMAP queue 1 item 11")
         get_verifier(ecfg.verifier)  # fail loudly on unknown names, at build time
@@ -175,7 +202,7 @@ class BatchedSpeculativeEngine:
         self.sampling = sampling or SamplingParams()
         self.selector = selector
         self.n_slots = n_slots
-        self.strategy = "tree"
+        self.strategy = "replay" if target_cfg.arch_type in RECURRENT else "tree"
         smax = ecfg.max_cache
         page = None
         if paged:
@@ -191,12 +218,14 @@ class BatchedSpeculativeEngine:
             page = (pool_blocks, bs)
         self.tpool = make_cache_pool(init_cache(target_cfg, n_slots, smax, self.device, True, page), n_slots)
         self.dpool = make_cache_pool(init_cache(draft_cfg, n_slots, smax, self.device, True, page), n_slots)
-        self.paged = paged
+        # pure-recurrent caches have no attention component to page
+        self.paged = bool(self._paged_pools())
         self.ragged = ragged
-        # the JAX "pallas" rule: the ragged pass needs the block-table kernel.
-        # That kernel takes each node's owner from its own row, so segments
-        # pack back to back (the JAX Pallas kernel 8-aligns them instead)
-        self._ragged_ok = bool(ragged) and isinstance(self.tpool, PagedCachePool)
+        # the JAX "pallas" rule: the ragged pass needs the block-table kernel
+        # and the tree strategy.  That kernel takes each node's owner from its
+        # own row, so segments pack back to back (the JAX Pallas kernel
+        # 8-aligns them instead)
+        self._ragged_ok = (bool(ragged) and self.strategy == "tree" and isinstance(self.tpool, PagedCachePool))
         self.streams: dict[int, dict] = {}  # slot -> stream state
         self.queue: list[BatchRequest] = []
         self.finished: dict[int, dict] = {}
@@ -243,6 +272,19 @@ class BatchedSpeculativeEngine:
     def _warp(self, logits):
         return warp_logits(logits, self.sampling.temperature, self.sampling.top_p)
 
+    def _tokens(self, toks: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(toks, np.int64), device=self.device)
+
+    @staticmethod
+    def _scatter_rows(pool_cache, trims, rows):
+        """Write row-sized sub-caches (``trims``, concatenated along the
+        stream axis) into a pool with ONE ``scatter_streams``.  (The JAX
+        engine pads the rows, and each grouped recurrent pass, to n_slots so
+        that its jitted calls compile once; eager torch has nothing to
+        compile and runs the real rows only.)"""
+        combined = trims[0] if len(trims) == 1 else concat_streams(trims)
+        return scatter_streams(pool_cache, combined, rows)
+
     # ------------------------------------------------------------ requests ---
 
     def submit(self, prompt: list[int], max_new: int = 64, seed: int | None = None) -> int:
@@ -275,12 +317,16 @@ class BatchedSpeculativeEngine:
         return rid
 
     def _prefill_row(self, cfg, params, ctx):
-        """Prefill a fresh 1-row per-stream ring with ``ctx`` tokens, padded
-        to a power of two (never past the ring)."""
+        """Prefill a fresh 1-row per-stream cache with ``ctx`` tokens: a
+        recurrent model at the exact length, an attention model padded to a
+        power of two (never past the ring)."""
         row = init_cache(cfg, 1, self.ecfg.max_cache, self.device, per_stream=True)
         if not ctx:
             return row, None
         T = len(ctx)
+        if cfg.arch_type in RECURRENT:
+            _, row, ex = forward(params, cfg, self._tokens(ctx)[None], mode="full", cache=row)
+            return row, _host(ex["hidden"][0, T - 1])
         Tp = min(_next_pow2(T), self.ecfg.max_cache)
         toks = np.zeros((1, Tp), np.int64)
         toks[0, :T] = ctx
@@ -358,9 +404,12 @@ class BatchedSpeculativeEngine:
     # ------------------------------------------------------------ drafting ---
 
     def _ingest_deltas(self, active):
-        """Advance the draft pool over each stream's newly committed tokens
-        in one padded pass.  Returns per-slot (q0 dist, draft hidden at the
-        new root)."""
+        """Advance the draft pool over each stream's newly committed tokens:
+        one padded pass, or, for a recurrent draft, one pass per delta
+        length over that length's rows and ONE write-back of every row.
+        Returns per-slot (q0 dist, draft hidden at the new root)."""
+        if self.dc.arch_type in RECURRENT:
+            return self._ingest_grouped(active)
         Dp = _next_pow2(max(len(self.streams[s]["draft_delta"]) for s in active))
         toks = self._stage("ing_toks", (self.n_slots, Dp), np.int32)
         lens = self._stage("ing_lens", (self.n_slots,), np.int32)
@@ -376,6 +425,29 @@ class BatchedSpeculativeEngine:
         hq = {s: hid[s, lens[s] - 1] for s in active}
         self.counters["draft_calls"] += 1
         self.counters["draft_tokens"] += int(lens.sum())
+        return q0, hq
+
+    def _ingest_grouped(self, active):
+        q0, hq = {}, {}
+        groups = defaultdict(list)
+        for s in active:
+            groups[len(self.streams[s]["draft_delta"])].append(s)
+        trims, all_rows = [], []
+        for L, rows in sorted(groups.items()):
+            toks = np.asarray([self.streams[s]["draft_delta"] for s in rows], np.int64)
+            sub = gather_streams(self.dpool.cache, rows)
+            logits, sub, ex = forward(self.dp, self.dc, self._tokens(toks), mode="decode", cache=sub)
+            trims.append(sub)
+            all_rows.extend(rows)
+            w = _host(self._warp(logits))
+            hid = _host(ex["hidden"])
+            for i, s in enumerate(rows):
+                q0[s] = w[i, L - 1]
+                hq[s] = hid[i, L - 1]
+            self.counters["draft_calls"] += 1
+            self.counters["draft_tokens"] += L * len(rows)
+        # a held back frame is a copy: the write-back may go into the pool
+        self.dpool.cache = self._scatter_rows(self.dpool.cache, trims, all_rows)
         return q0, hq
 
     @staticmethod
@@ -439,7 +511,8 @@ class BatchedSpeculativeEngine:
     def _draft_trees(self, active, acts, q0, pads):
         """Lockstep-draft every stream's (K, L1, L2) delayed tree.  The trunk
         steps write into the draft pool's arena in place but keep its pos and
-        len (module docstring); the branches run on a dense fork."""
+        len (module docstring), and return a recurrent draft's state as new
+        tensors; the branches run on a dense fork."""
         Kp = pads[0]
         L1m = max(a[1] for a in acts.values())
         L2m = max(a[2] for a in acts.values())
@@ -620,6 +693,89 @@ class BatchedSpeculativeEngine:
         self.counters["commit_calls"] += 1
         self.counters["commit_ms"] += (time.perf_counter() - t0) * 1e3
 
+    # --------------------------------------------------- target: replay -----
+
+    def _target_replay(self, active, trees, Kp):
+        """Recurrent targets: the trunk decode, grouped by trunk length, from
+        the committed snapshot, then the forked branch replay, grouped by
+        branch length.  Returns (snapshot, per-slot float32 distributions).
+        The target pool itself is not written before the commit."""
+        snapshot = self.tpool.cache
+        structs = {s: delayed_structure(trees[s]) for s in active}
+        p_host = {s: np.zeros((trees[s].n_nodes, trees[s].vocab), np.float32) for s in active}
+        groups = defaultdict(list)
+        for s in active:
+            groups[1 + len(structs[s][0])].append(s)
+        trims, trunk_rows = [], []
+        for L, rows in sorted(groups.items()):
+            toks = np.zeros((len(rows), L), np.int64)
+            for i, s in enumerate(rows):
+                toks[i, 0] = self.streams[s]["pending"]
+                toks[i, 1:] = [int(trees[s].tokens[v]) for v in structs[s][0]]
+            sub = gather_streams(snapshot, rows)  # a copy: the snapshot is the commit's checkpoint
+            logits, sub, _ = forward(self.tp, self.tc, self._tokens(toks), mode="decode", cache=sub)
+            trims.append(sub)
+            trunk_rows.extend(rows)
+            w = _host(self._warp(logits))
+            for i, s in enumerate(rows):
+                p_host[s][0] = w[i, 0]
+                for j, v in enumerate(structs[s][0]):
+                    p_host[s][v] = w[i, 1 + j]
+            self.counters["target_calls"] += 1
+            self.counters["target_tokens"] += L * len(rows)
+        has_branches = [s for s in active if structs[s][2]]
+        if has_branches and Kp:
+            # every trunk-advanced row written into a dense copy of the pool's
+            # rows (paged rows gathered to their rings), which is forked
+            work = self._scatter_rows(gather_streams(snapshot, range(self.n_slots)), trims, trunk_rows)
+            fork = fork_streams(work, Kp)
+            bgroups = defaultdict(list)
+            for s in has_branches:
+                bgroups[len(structs[s][2][0])].append(s)
+            for L2, rows in sorted(bgroups.items()):
+                frows, meta = [], []
+                for s in rows:
+                    for k, path in enumerate(structs[s][2]):
+                        frows.append(s * Kp + k)
+                        meta.append((s, path))
+                btoks = np.asarray([[int(trees[s].tokens[v]) for v in path] for s, path in meta], np.int64)
+                sub = gather_streams(fork, frows)
+                logits, _, _ = forward(self.tp, self.tc, self._tokens(btoks), mode="decode", cache=sub)
+                pb = _host(self._warp(logits))
+                for i, (s, path) in enumerate(meta):
+                    for j, v in enumerate(path):
+                        p_host[s][v] = pb[i, j]
+                self.counters["target_calls"] += 1
+                self.counters["target_tokens"] += L2 * len(frows)
+        return snapshot, p_host
+
+    def _commit_replay(self, active, snapshot, accepted_by_slot):
+        """Re-advance each stream's row of the snapshot along [root] +
+        accepted (grouped by commit length), then write every row back with
+        ONE scatter.  Returns each stream's last hidden state."""
+        hid_last = {}
+        groups = defaultdict(list)
+        for s in active:
+            groups[1 + len(accepted_by_slot[s])].append(s)
+        trims, all_rows = [], []
+        for L, rows in sorted(groups.items()):
+            toks = np.zeros((len(rows), L), np.int64)
+            for i, s in enumerate(rows):
+                toks[i, 0] = self.streams[s]["pending"]
+                toks[i, 1:] = accepted_by_slot[s]
+            sub = gather_streams(snapshot, rows)
+            _, sub, ex = forward(self.tp, self.tc, self._tokens(toks), mode="decode", cache=sub)
+            trims.append(sub)
+            all_rows.extend(rows)
+            hid = _host(ex["hidden"])
+            for i, s in enumerate(rows):
+                hid_last[s] = hid[i, L - 1]
+        t0 = time.perf_counter()
+        self.tpool.cache = self._scatter_rows(snapshot, trims, all_rows)
+        self.counters["commit_calls"] += 1
+        self.counters["commit_ms"] += (time.perf_counter() - t0) * 1e3
+        return hid_last
+
     # ---------------------------------------------------------------- step ---
 
     def begin_step(self) -> PendingStep | None:
@@ -664,12 +820,22 @@ class BatchedSpeculativeEngine:
         rng_state, D0 = None, None
         if self.pipeline:
             rng_state = {s: self.streams[s]["rng"].bit_generator.state for s in active}
-            # the draft rewind is logical: this step's only persisted draft
-            # mutation is the append-only delta ingest
-            D0 = {s: len(self.streams[s]["committed"]) - len(self.streams[s]["draft_delta"])
-                  for s in active}
+            if self.dc.arch_type in RECURRENT:
+                # recurrent draft state integrates every token: it rewinds
+                # only from a saved copy, the back frame
+                self.dpool.begin_frame()
+            else:
+                # the attention draft rewind is logical: this step's only
+                # persisted draft mutation is the append-only delta ingest
+                D0 = {s: len(self.streams[s]["committed"]) - len(self.streams[s]["draft_delta"])
+                      for s in active}
         q0, hq = self._ingest_deltas(active)
         trees = self._draft_trees(active, acts, q0, pads)
+        if self.strategy == "replay":
+            snapshot, p_host = self._target_replay(active, trees, pads[0])
+            return PendingStep(active=active, acts=acts, pads=pads, trees=trees, hq=hq, C0=C0,
+                               snapshot=snapshot, p_host=p_host, rng_state=rng_state, D0=D0,
+                               boundary_evicted=boundary_evicted)
         roffs = None
         if self._ragged_ok:
             offs, Npad = self._ragged_layout(active, trees)
@@ -687,9 +853,20 @@ class BatchedSpeculativeEngine:
     def verify_step(self, pending: PendingStep) -> VerifiedStep:
         """The VERIFY phase: wait for the tree pass's distributions and run
         every stream's host-side accept/reject walk.  Consumes per-stream rng;
-        touches no pool or scheduling state."""
+        touches no pool or scheduling state (beyond dropping the draft pool's
+        back frame: the step is being finished)."""
+        if self.dpool.frame_held:
+            self.dpool.drop_frame()
+        accepted, corr = {}, {}
+        if self.strategy == "replay":
+            for s in pending.active:
+                tree = pending.trees[s]
+                tree.p = to_verifier_dtype(pending.p_host[s])
+                accepted[s], c = verify_tree(tree, self.ecfg.verifier, self.streams[s]["rng"])
+                corr[s] = int(c)
+            return VerifiedStep(pending, accepted, corr)
         p_all = pending.p_dev.numpy()
-        accepted, corr, node_paths = {}, {}, {}
+        node_paths = {}
         for s in pending.active:
             tree = pending.trees[s]
             if pending.roffs is not None:
@@ -703,14 +880,24 @@ class BatchedSpeculativeEngine:
         return VerifiedStep(pending, accepted, corr, node_paths=node_paths)
 
     def commit_step(self, v: VerifiedStep) -> None:
-        """The COMMIT phase: ONE fused commit.  Runs before ``retire_step``
+        """The COMMIT phase: ONE fused commit (tree strategy), or the grouped
+        replay re-advance and its one write-back (replay strategy, which
+        also yields the last hidden states).  Runs before ``retire_step``
         extends ``committed`` (the commit indices are pre-block)."""
-        self._commit_tree_batch(v.pending.active, v.node_paths, v.pending.pads[3])
+        if self.strategy == "tree":
+            self._commit_tree_batch(v.pending.active, v.node_paths, v.pending.pads[3])
+        else:
+            v.hid_last = self._commit_replay(v.pending.active, v.pending.snapshot, v.accepted)
 
     def _read_hidden(self, v: VerifiedStep) -> None:
         """Publish each stream's last accepted hidden state; departed rows
         (evicted at a begun-ahead boundary) are skipped."""
         pending = v.pending
+        if self.strategy == "replay":
+            for s in pending.active:
+                if s in self.streams:
+                    self.streams[s]["h_prev_p"] = v.hid_last[s]
+            return
         hid_all = pending.hid_dev.numpy()
         for s in pending.active:
             if s not in self.streams:
@@ -729,11 +916,12 @@ class BatchedSpeculativeEngine:
         reads it at the boundary."""
         pending = v.pending
         retire = [(s, self._advance_stream(s, pending.trees[s], v.accepted[s], v.corr[s], pending.hq[s],
-                                           v.node_paths[s]))
+                                           None if v.node_paths is None else v.node_paths[s]))
                   for s in pending.active]
         if pipeline_ahead is None:
             pipeline_ahead = self.pipeline
-        defer_hid = pipeline_ahead and self.selector is None
+        # the replay strategy's hid_last is already on the host
+        defer_hid = pipeline_ahead and self.strategy == "tree" and self.selector is None
         if not defer_hid:
             self._read_hidden(v)
         for s, ev in retire:
@@ -779,10 +967,12 @@ class BatchedSpeculativeEngine:
 
     def abort_step(self, pending: PendingStep) -> None:
         """Rewind a begun step as if it never dispatched (pipelined mode):
-        restore the streams' rng snapshots, erase the draft ingest
-        (pos >= D0) and the target's speculative tree lanes (pos >= C0).
-        Boundary decisions (admissions, evictions, block mappings) and work
-        counters stand."""
+        restore the streams' rng snapshots, rewind the draft pool (a
+        recurrent draft from its back frame, an attention draft by erasing
+        the ingest, pos >= D0) and erase the target's speculative tree
+        lanes (pos >= C0; the replay strategy writes the target pool only
+        at its commit).  Boundary decisions (admissions, evictions, block
+        mappings) and work counters stand."""
         if pending.rng_state is None:
             raise ValueError("abort_step needs the rng snapshots only pipelined begin_step records")
         if pending is self._pending_next:
@@ -791,8 +981,12 @@ class BatchedSpeculativeEngine:
             if s in self.streams:
                 self.streams[s]["rng"].bit_generator.state = state
         live = [s for s in pending.active if s in self.streams]
-        self.dpool.invalidate_from({s: pending.D0[s] for s in live})
-        self.tpool.invalidate_from({s: pending.C0[s] for s in live})
+        if self.dpool.frame_held:
+            self.dpool.rollback_frame()
+        elif pending.D0 is not None:
+            self.dpool.invalidate_from({s: pending.D0[s] for s in live})
+        if self.strategy == "tree":
+            self.tpool.invalidate_from({s: pending.C0[s] for s in live})
 
     def abort_pipeline(self) -> int:
         """Rewind the begun-ahead step, if any; returns how many (0 or 1)."""
@@ -806,6 +1000,8 @@ class BatchedSpeculativeEngine:
         """Token bookkeeping shared with SpeculativeEngine.step.  Marks the
         stream done at ``max_new`` without releasing its row."""
         st = self.streams[slot]
+        if node_path is None:
+            node_path = SpeculativeEngine._accepted_nodes(tree, accepted)
         st["p_prev"] = tree.p[node_path[-1]] if accepted else tree.p[0]
         st["q_prev"] = tree.q[node_path[-1]] if accepted else tree.q[0]
         new_tokens = list(accepted) + [corr]

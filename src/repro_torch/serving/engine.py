@@ -1,17 +1,26 @@
 """Speculative-decoding engine: delayed-tree drafting + tree-masked target
 pass + lossless verification, with optional action selection.
 
-The counterpart of ``SpeculativeEngine`` in src/repro/serving/engine.py with
-the "tree" target-pass strategy (attention-based targets): one pass over the
-speculation block with the ancestor mask, then the accepted KVs are
-committed in place and the stale tree slots invalidated.  It consumes the
-numpy ``rng`` in exactly the JAX engine's order, so the two emit the same
-tokens from the same weights and seed (tests/test_torch_engine.py).
+The counterpart of ``SpeculativeEngine`` in src/repro/serving/engine.py,
+with its two target-pass strategies:
+
+  * "tree" (attention-based targets): one pass over the speculation block
+    with the ancestor mask, then the accepted KVs are committed in place
+    and the stale tree slots invalidated;
+  * "replay" (SSM and hybrid targets, whose recurrent state has no tree
+    analogue): the trunk is scored in one decode from the committed
+    snapshot, the branches by replaying from a K-way fork of the
+    post-trunk cache, and the commit re-advances the snapshot along the
+    accepted path.
+
+It consumes the numpy ``rng`` in exactly the JAX engine's order, so the two
+emit the same tokens from the same weights and seed
+(tests/test_torch_engine.py, tests/test_torch_replay.py).
 
 Model calls run on the device the weights lie on; warped distributions come
 back to the host as float32 numpy, and verification runs on the host
-through the core/verify.py registry.  The "replay" strategy (SSM/hybrid
-targets) and on-device verification are not ported yet and raise.
+through the core/verify.py registry.  On-device verification is not ported
+and raises.
 """
 from __future__ import annotations
 
@@ -20,10 +29,11 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from repro_torch.core.traversal import delayed_structure
 from repro_torch.core.trees import DraftTree, tree_ancestor_mask
 from repro_torch.core.verify import get_verifier
 from repro_torch.models.cache import clone_cache, fork_streams
-from repro_torch.models.transformer import forward, init_cache
+from repro_torch.models.transformer import RECURRENT, forward, init_cache
 from repro_torch.sampling import warp_logits
 from repro_torch.serving.serve_step import make_pool_commit_step, next_pow2
 
@@ -79,10 +89,6 @@ class SpeculativeEngine:
                  sampling: SamplingParams | None = None, selector=None):
         assert target_cfg.vocab == draft_cfg.vocab
         get_verifier(ecfg.verifier)  # fail loudly on unknown names, at build time
-        if target_cfg.arch_type in ("ssm", "hybrid"):
-            raise NotImplementedError(
-                "the replay target-pass strategy (SSM/hybrid targets) is not ported: "
-                "ROADMAP queue 1 item 9")
         if ecfg.verify_on_device:
             raise NotImplementedError("on-device verification is not ported: ROADMAP queue 1 item 11")
         self.tc, self.tp = target_cfg, target_params
@@ -95,6 +101,7 @@ class SpeculativeEngine:
         self.sampling = sampling or SamplingParams()
         self.selector = selector  # callable(stream, engine) -> (K, L1, L2) or None
         self.rng = np.random.default_rng(ecfg.seed)
+        self.strategy = "replay" if target_cfg.arch_type in RECURRENT else "tree"
         # latency accounting (model-call counting for the Eq. 11 throughput model)
         self.counters = {"target_calls": 0, "target_tokens": 0, "draft_calls": 0,
                          "draft_tokens": 0, "accepted": 0, "blocks": 0}
@@ -126,12 +133,13 @@ class SpeculativeEngine:
         self.counters["target_tokens"] += T
         return _host(self._warp(logits[0])), cache, _host(ex["hidden"][0])
 
-    def _target_decode(self, cache, tokens_np):
+    def _target_decode(self, cache, tokens_np, count=True):
         T = len(tokens_np)
         logits, cache, ex = forward(self.tp, self.tc, self._tokens(tokens_np)[None],
                                     mode="decode", cache=cache)
-        self.counters["target_calls"] += 1
-        self.counters["target_tokens"] += T
+        if count:
+            self.counters["target_calls"] += 1
+            self.counters["target_tokens"] += T
         return _host(self._warp(logits[0])), cache, _host(ex["hidden"][0])
 
     # -------------------------------------------------------------- stream ---
@@ -172,7 +180,9 @@ class SpeculativeEngine:
         # persist it.  The trunk below writes its speculative KV into a copy,
         # since passes write k/v in place and the JAX engine's trunk leaves
         # the persisted cache as it was (with a wrapped ring, trunk slots
-        # still hold committed tokens of the persisted cache).
+        # still hold committed tokens of the persisted cache).  Recurrent
+        # draft state comes back as new tensors, so the persisted state
+        # stays exact, as on the JAX engine's discarded functional copies.
         stream["dcache"] = dcache
         if L1 > 0:
             dcache = clone_cache(dcache)
@@ -272,13 +282,17 @@ class SpeculativeEngine:
         tree_tok[0] = stream["pending"]
         anc = tree_ancestor_mask(tree.parent)
 
-        p_dists, tcache, hid = self._target_pass_tree(stream["tcache"], tree_tok, anc)
-        tree.p = to_verifier_dtype(p_dists)
-        accepted, corr = self._verify(tree)
-        node_path = self._accepted_nodes(tree, accepted)
-        stream["tcache"] = self._commit_tree_cache(tcache, C, node_path, T)
-        last_node = node_path[-1] if node_path else 0
-        stream["h_prev_p"] = hid[last_node]
+        if self.strategy == "tree":
+            p_dists, tcache, hid = self._target_pass_tree(stream["tcache"], tree_tok, anc)
+            tree.p = to_verifier_dtype(p_dists)
+            accepted, corr = self._verify(tree)
+            node_path = self._accepted_nodes(tree, accepted)
+            stream["tcache"] = self._commit_tree_cache(tcache, C, node_path, T)
+            last_node = node_path[-1] if node_path else 0
+            stream["h_prev_p"] = hid[last_node]
+        else:
+            accepted, corr, hid_last = self._verify_replay(stream, tree, tree_tok)
+            stream["h_prev_p"] = hid_last
 
         stream["p_prev"] = tree.p[self._accepted_nodes(tree, accepted)[-1]] if accepted else tree.p[0]
         stream["q_prev"] = tree.q[self._accepted_nodes(tree, accepted)[-1]] if accepted else tree.q[0]
@@ -290,6 +304,42 @@ class SpeculativeEngine:
         self.counters["accepted"] += len(accepted)
         self.counters["blocks"] += 1
         return new_tokens
+
+    # -------------------------------------------------- replay (SSM/hybrid) --
+
+    def _verify_replay(self, stream, tree: DraftTree, tree_tok):
+        """Target pass of a recurrent target: the trunk decode from the
+        committed snapshot, the branch replay on a K-way fork of the
+        post-trunk cache, verification, then the commit: the snapshot
+        re-advanced along [root] + accepted.  The trunk runs on a copy of
+        the snapshot, since the hybrid's passes write the attention k/v in
+        place and the commit decodes from the snapshot as it was (JAX keeps
+        it by value)."""
+        trunk, _, branches = delayed_structure(tree)
+        snapshot = stream["tcache"]
+        trunk_tokens = [int(tree_tok[0])] + [int(tree.tokens[v]) for v in trunk]
+        p_seq, cache_after_trunk, _ = self._target_decode(clone_cache(snapshot), trunk_tokens)
+        p = np.zeros((tree.n_nodes, tree.vocab), VERIFIER_DTYPE)
+        p[0] = p_seq[0]
+        for i, v in enumerate(trunk):
+            p[v] = p_seq[i + 1]
+        if branches:
+            K = len(branches)
+            fork = fork_streams(cache_after_trunk, K)
+            btoks = np.asarray([[int(tree.tokens[v]) for v in path] for path in branches], np.int64)
+            logits, _, _ = forward(self.tp, self.tc, self._tokens(btoks), mode="decode", cache=fork)
+            self.counters["target_calls"] += 1
+            self.counters["target_tokens"] += btoks.size
+            pb = _host(self._warp(logits))
+            for k, path in enumerate(branches):
+                for j, v in enumerate(path):
+                    p[v] = pb[k, j]
+        tree.p = p
+        accepted, corr = self._verify(tree)
+        commit_toks = [int(tree_tok[0])] + [int(t) for t in accepted]
+        _, new_cache, hid = self._target_decode(snapshot, commit_toks, count=False)
+        stream["tcache"] = new_cache
+        return accepted, int(corr), hid[-1]
 
     # ------------------------------------------------------- distribution peeks
 

@@ -100,8 +100,8 @@ def make_pool_locked_step(cfg):
     """(params, pool_cache, tokens (B, 1), keep (B,)) -> (logits, cache).
 
     One lockstep token per stream; rows with keep=False keep their prior
-    pos/len (merge_streams), their K/V write stays in a lane barred by
-    pos = -1."""
+    pos/len and recurrent state (merge_streams), their K/V write stays in
+    a lane barred by pos = -1."""
 
     def step(params, cache, tokens, keep):
         logits, new_cache, _ = forward(params, cfg, tokens, mode="decode", cache=cache)

@@ -35,18 +35,20 @@ from repro_torch.kernels.tree_attention import (
     SPLIT_ABOVE,
     SPLIT_SLOTS,
     launch_schedule,
+    max_score_rows,
 )
 from test_torch_edge_masks import EDGE_KINDS, edge_mask
 
 ATOL = 1e-5
 NEG_INF = -1e30
-WARPS, WARP_ROWS, MAX_TEAMS = 8, 16, 4  # the bf16 kernel's warps, rows per warp tile, chunks per stage
+WARPS, WARP_ROWS = 8, 16  # the bf16 kernel's warps and rows per warp tile
 
 
-def n_teams(score_rows):
+def n_teams(score_rows, D):
     """Warp teams of a CTA in the bf16 kernel: each team holds every 16-row
-    tile of the score rows, at most 4 teams (one chunk each per stage)."""
-    return min(MAX_TEAMS, WARPS // -(-score_rows // WARP_ROWS))
+    tile of the score rows, at most one team per chunk of a stage (4 chunks,
+    2 at D 256)."""
+    return min(4 if D <= 128 else 2, WARPS // -(-score_rows // WARP_ROWS))
 
 
 def merge(m, l, acc, m2, l2, acc2):
@@ -106,7 +108,7 @@ def model(q, kview, vview, mask, view, tiles, gh, split_slots, live_log=None):
         for kvh in range(Hkv):
             for g0 in range(0, G, gh):
                 heads = list(range(kvh * G + g0, kvh * G + min(G, g0 + gh)))
-                assert (r1 - r0) * len(heads) <= MAX_SCORE_ROWS
+                assert (r1 - r0) * len(heads) <= max_score_rows(D)
                 for split in range(n_split):
                     lo, hi = split * split_slots, min(S, (split + 1) * split_slots)
                     mk = mask[r0:r1, lo:hi]
@@ -114,7 +116,7 @@ def model(q, kview, vview, mask, view, tiles, gh, split_slots, live_log=None):
                     if live_log is not None:
                         live_log.append(((r0, r1), kvh, split, live))
                     qh = q[r0:r1, heads].float()  # (nq, ng, D)
-                    teams = n_teams((r1 - r0) * len(heads))
+                    teams = n_teams((r1 - r0) * len(heads), D)
                     states = []
                     for team in range(teams):  # team t takes live chunks t, t + teams, ...
                         m = torch.full(qh.shape[:2], NEG_INF)
@@ -157,10 +159,10 @@ def model(q, kview, vview, mask, view, tiles, gh, split_slots, live_log=None):
     return out
 
 
-def schedule(H, Hkv, S, split):
+def schedule(H, Hkv, S, split, D):
     """launch_schedule, or the same with ``split`` slots per split (to run
     the split path at a small S)."""
-    tq, gh, split_slots, n_split = launch_schedule(H, Hkv, S)
+    tq, gh, split_slots, n_split = launch_schedule(H, Hkv, S, D)
     return (tq, gh, split_slots) if split is None else (tq, gh, split)
 
 
@@ -179,20 +181,25 @@ def _jax_dense_ref(q, k, v, mask):
 # ------------------------------------------------------------ the rule ---
 
 
-@pytest.mark.parametrize("H,Hkv,S,n_split", [
-    (32, 8, 1024, 1), (16, 4, 1024, 1), (64, 4, 1024, 1), (32, 2, 1024, 1),  # the engines' rings and arenas
-    (4, 4, 33, 1), (8, 8, 4096, 1), (256, 1, 100, 1), (12, 2, 300, 1),
-    (32, 8, 32768, 16),   # granite heads on a 32768-slot ring
-    (64, 4, 32768, 16),   # qwen3-moe heads: the split depends on S alone
-    (32, 8, 4097, 3),     # just past the threshold
-    (16, 4, 6000, 3),
-    (32, 8, 1 << 20, 512),
+@pytest.mark.parametrize("H,Hkv,S,n_split,D", [
+    (32, 8, 1024, 1, 128), (16, 4, 1024, 1, 128), (64, 4, 1024, 1, 128), (32, 2, 1024, 1, 128),  # engines'
+    (4, 4, 33, 1, 128), (8, 8, 4096, 1, 128), (256, 1, 100, 1, 128), (12, 2, 300, 1, 128),
+    (32, 8, 32768, 16, 128),   # granite heads on a 32768-slot ring
+    (64, 4, 32768, 16, 128),   # qwen3-moe heads: the split depends on S alone
+    (32, 8, 4097, 3, 128),     # just past the threshold
+    (16, 4, 6000, 3, 128),
+    (32, 8, 1 << 20, 512, 128),
+    (10, 1, 1024, 1, 256),     # recurrentgemma-2b's local attention: G 10, head_dim 256
+    (10, 1, 4608, 3, 256),     # a ring past the 4096-slot threshold
+    (256, 1, 100, 1, 256),     # G past the 64 rows of a D 256 CTA
 ])
-def test_launch_schedule_rule(H, Hkv, S, n_split):
-    tq, gh, split_slots, got = launch_schedule(H, Hkv, S)
+def test_launch_schedule_rule(H, Hkv, S, n_split, D):
+    tq, gh, split_slots, got = launch_schedule(H, Hkv, S, D)
     G = H // Hkv
-    assert 1 <= tq <= MAX_QUERY_ROWS and 1 <= gh <= G and tq * gh <= MAX_SCORE_ROWS
-    assert gh == min(G, MAX_SCORE_ROWS)  # a KV head's whole group per CTA when it fits
+    rows = max_score_rows(D)
+    assert rows == (MAX_SCORE_ROWS if D <= 128 else MAX_SCORE_ROWS // 2)
+    assert 1 <= tq <= MAX_QUERY_ROWS and 1 <= gh <= G and tq * gh <= rows
+    assert gh == min(G, rows)  # a KV head's whole group per CTA when it fits
     assert got == n_split and split_slots % CHUNK == 0 and n_split * split_slots >= S > (n_split - 1) * split_slots
     if S <= SPLIT_ABOVE:  # one key range: one launch per call
         assert split_slots < S + CHUNK
@@ -228,6 +235,7 @@ def test_ragged_tiles_cut_at_owner_changes(owner, tq):
     (1, 7, 8, 2, 256, 32, 1),    # G 4, the tree pass's shape at small width
     (2, 17, 16, 1, 256, 32, 2),  # G 16: tiles of 8 query rows, a mask per row
     (2, 33, 2, 2, 192, 16, 1),   # G 1: tiles of 32 query rows, one mask for B 2
+    (1, 14, 10, 1, 128, 256, 1),  # recurrentgemma-2b's heads, head_dim 256: tiles of 6 query rows
 ])
 def test_model_matches_tree_attention_oracles(split, kind, B, T, H, Hkv, S, D, Bm):
     rng = np.random.default_rng(T * 10 + H)
@@ -235,7 +243,7 @@ def test_model_matches_tree_attention_oracles(split, kind, B, T, H, Hkv, S, D, B
     k = rng.standard_normal((B, S, Hkv, D)).astype(np.float32)
     v = rng.standard_normal((B, S, Hkv, D)).astype(np.float32)
     mask = edge_mask(kind, Bm, T, S, seed=T)
-    tq, gh, split_slots = schedule(H, Hkv, S, split)
+    tq, gh, split_slots = schedule(H, Hkv, S, split, D)
     rows_mask = torch.from_numpy(np.broadcast_to(mask, (B, T, S)).reshape(B * T, S).copy())
     view = torch.arange(B).repeat_interleave(T)
     log = []
@@ -253,6 +261,7 @@ def test_model_matches_tree_attention_oracles(split, kind, B, T, H, Hkv, S, D, B
 @pytest.mark.parametrize("B,T,H,Hkv,D,block,nb,unmapped,Bm", [
     (3, 7, 8, 2, 32, 16, 16, 3, 3),   # unmapped tail blocks read the trash block
     (2, 17, 16, 1, 16, 32, 8, 1, 1),  # G 16, one mask for both rows
+    (2, 5, 10, 1, 256, 16, 8, 2, 2),  # recurrentgemma-2b's heads, head_dim 256
 ])
 def test_model_matches_paged_oracles(split, kind, B, T, H, Hkv, D, block, nb, unmapped, Bm):
     rng = np.random.default_rng(nb * 10 + T)
@@ -263,7 +272,7 @@ def test_model_matches_paged_oracles(split, kind, B, T, H, Hkv, D, block, nb, un
     tbl = (rng.permutation(B * nb + 1)[:B * nb] + 1).reshape(B, nb).astype(np.int32)
     tbl[:, nb - unmapped:] = -1
     mask = edge_mask(kind, Bm, T, S, seed=B)
-    tq, gh, split_slots = schedule(H, Hkv, S, split)
+    tq, gh, split_slots = schedule(H, Hkv, S, split, D)
     kd, vd = paged_gather_kv_ref(torch.from_numpy(k), torch.from_numpy(v), torch.from_numpy(tbl))
     rows_mask = torch.from_numpy(np.broadcast_to(mask, (B, T, S)).reshape(B * T, S).copy())
     got = model(torch.from_numpy(q).reshape(B * T, H, D), kd, vd, rows_mask, torch.arange(B).repeat_interleave(T),
@@ -292,7 +301,7 @@ def test_model_matches_ragged_oracles(split, owners, H, Hkv):
     owner = np.asarray(owners, np.int32)
     mask = edge_mask("fully masked row in a tile", 1, N, S, seed=N)[0]
     mask[3] |= edge_mask("runs straddling chunk edges", 1, 1, S)[0, 0]
-    tq, gh, split_slots = schedule(H, Hkv, S, split)
+    tq, gh, split_slots = schedule(H, Hkv, S, split, D)
     kd, vd = paged_gather_kv_ref(torch.from_numpy(k), torch.from_numpy(v), torch.from_numpy(tbl))
     got = model(torch.from_numpy(q), kd, vd, torch.from_numpy(mask), torch.from_numpy(owner),
                 ragged_tiles(owners, tq), gh, split_slots).numpy()

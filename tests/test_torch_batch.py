@@ -185,7 +185,7 @@ def test_batched_engine_refuses_what_is_not_ported(models):
     _, (tt, ttp, td, tdp) = models
     with pytest.raises(NotImplementedError, match="queue 1 item 8"):
         tbe.BatchedSpeculativeEngine(tt, ttp, td, tdp, teng.EngineConfig(), mesh=object())
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        tbe.BatchedSpeculativeEngine(tt.replace(arch_type="ssm"), ttp, td, tdp, teng.EngineConfig())
+    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
+        tbe.BatchedSpeculativeEngine(tt.replace(arch_type="encdec"), ttp, td, tdp, teng.EngineConfig())
     with pytest.raises(NotImplementedError, match="queue 1 item 11"):
         tbe.BatchedSpeculativeEngine(tt, ttp, td, tdp, teng.EngineConfig(verify_on_device=True))

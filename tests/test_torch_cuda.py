@@ -467,6 +467,86 @@ def test_paged_and_ragged_attention_long_rows_split(cuda, dtype):
     assert rel <= TOLERANCE[dtype], rel
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_tree_kernels_at_head_dim_256(cuda, dtype):
+    """recurrentgemma-2b's local attention (H 10, Hkv 1, head_dim 256: 64
+    score rows a CTA) under its 2048-slot window, with a fully masked row,
+    through kernels 1-3: first the largest shared-memory layout of one key
+    range (S 4096, 16-slot blocks; the chunks below the window are dead),
+    then a smaller one (S 1024), then the largest again.  Each output is
+    held to TOLERANCE, and each query row to TOLERANCE x its own largest
+    |output|."""
+    from repro_torch.kernels.paged_tree_attention import paged_tree_attention, ragged_paged_tree_attention
+    from repro_torch.kernels.ref import paged_tree_attention_ref, ragged_tree_attention_ref
+    from repro_torch.models.cache import attn_mask_from_pos
+
+    B, T, H, Hkv, D, block, window = 2, 5, 10, 1, 256, 16, 2048
+    for i, S in enumerate((4096, 1024, 4096)):
+        nb = S // block
+        q, k, v, tbl, _ = _paged_inputs(cuda, dtype, B, T, H, Hkv, D, block, nb, B * nb + 2, seed=S + i)
+        kd, vd = (torch.randn((B, S, Hkv, D), device=cuda, generator=torch.Generator(device=cuda).manual_seed(i))
+                  .to(q.dtype) for _ in range(2))
+        pos = torch.arange(S, device=cuda)[None].expand(B, S)  # a full ring: position s in slot s
+        q_pos = torch.stack([torch.arange(S - T, S, device=cuda), torch.arange(S - 2 * T, S - T, device=cuda)])
+        mask = attn_mask_from_pos(pos, q_pos, window)[:, 0].contiguous()  # (B, T, S)
+        mask[0, T - 1] = False  # a fully masked row: the mean of V
+        checks = [(tree_attention(q, kd, vd, mask), tree_attention_ref(q, kd, vd, mask)),
+                  (paged_tree_attention(q, k, v, tbl, mask), paged_tree_attention_ref(q, k, v, tbl, mask))]
+        owner = torch.tensor([0] * T + [1] * T + [-1], dtype=torch.int32, device=cuda)
+        qn, mn = torch.cat([q.reshape(B * T, H, D), q[0, :1]]), torch.cat([mask.reshape(B * T, S), mask[0, :1]])
+        out = ragged_paged_tree_attention(qn, k, v, tbl, owner, mn)
+        assert not out[-1].any()
+        checks.append((out[:-1], ragged_tree_attention_ref(qn, k, v, tbl, owner, mn)[:-1]))
+        torch.cuda.synchronize()
+        for out, want in checks:
+            assert out.dtype == q.dtype and torch.isfinite(out).all()
+            err = (out.float() - want.float()).abs().max().item()
+            assert err <= TOLERANCE[dtype], (S, err)
+            rel = _query_row_rel_err(out, want)
+            assert rel <= TOLERANCE[dtype], (S, rel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,T,S,C,D", [
+    (2, 13, 1024, 40, 256),   # 3 query tiles of 6 rows a batch row, the last one partial
+    (2, 8, 4096, 3000, 256),  # an 8-token admission past the window: 2 tiles, dead chunks below it
+    (1, 2600, 4096, 0, 256),  # a 2600-token prefill into an empty 4096-slot ring: 434 tiles
+    (1, 2600, 4096, 0, 128),  # the same prefill through the draft's heads (G 10 at D 128: tiles of 12)
+])
+def test_tree_kernels_many_query_tiles_under_the_window(cuda, dtype, B, T, S, C, D):
+    """recurrentgemma-2b's local attention (H 10, Hkv 1) with several query
+    tiles in one batch row, each with its own window of live chunks: T new
+    tokens after C + 9 b committed ones in row b, the mask made by the
+    cache's own function, through kernels 1 and 2 (64-slot blocks).  Each
+    output is held to TOLERANCE, and each query row to TOLERANCE x its own
+    largest |output|."""
+    from repro_torch.kernels.paged_tree_attention import paged_tree_attention
+    from repro_torch.kernels.ref import paged_tree_attention_ref
+    from repro_torch.models.cache import attn_mask_from_pos
+
+    H, Hkv, block, window = 10, 1, 64, 2048
+    nb = S // block
+    q, k, v, tbl, _ = _paged_inputs(cuda, dtype, B, T, H, Hkv, D, block, nb, B * nb + 1, seed=T + D)
+    kd, vd = (torch.randn((B, S, Hkv, D), device=cuda, generator=torch.Generator(device=cuda).manual_seed(i))
+              .to(q.dtype) for i in range(2))
+    lengths = torch.tensor([C + 9 * b for b in range(B)], device=cuda)
+    slot = torch.arange(S, device=cuda)[None]
+    pos = torch.where(slot < (lengths + T)[:, None], slot, -1)
+    q_pos = lengths[:, None] + torch.arange(T, device=cuda)
+    mask = attn_mask_from_pos(pos, q_pos, window)[:, 0].contiguous()  # (B, T, S)
+    checks = [(tree_attention(q, kd, vd, mask), tree_attention_ref(q, kd, vd, mask)),
+              (paged_tree_attention(q, k, v, tbl, mask), paged_tree_attention_ref(q, k, v, tbl, mask))]
+    torch.cuda.synchronize()
+    for out, want in checks:
+        assert out.dtype == q.dtype and torch.isfinite(out).all()
+        err = (out.float() - want.float()).abs().max().item()
+        assert err <= TOLERANCE[dtype], err
+        rel = _query_row_rel_err(out, want)
+        assert rel <= TOLERANCE[dtype], rel
+
+
 # ------------------------------- the one-launch flash-decode and the one-wave commit ---
 
 

@@ -1,7 +1,8 @@
 """The PyTorch port's speculative engine against the JAX package, on the CPU.
 
   * token identity: from the same weights (bridged) and seeds, the port's
-    ``SpeculativeEngine`` emits exactly the JAX engine's tokens and counts;
+    ``SpeculativeEngine`` emits exactly the JAX engine's tokens and counts,
+    also on the minitron-8b and qwen2-72b smokes with their drafts;
   * the copied host core: every registry verifier returns the same
     (accepted, correction) as ``repro.core.verify`` on random trees with the
     same rng;
@@ -73,12 +74,36 @@ def test_engine_token_identity(models, verifier, K, L1, L2, temperature, top_p):
     assert outs[0][1]["accepted"] > 0  # some drafts were accepted, so commits moved KV
 
 
+@pytest.mark.parametrize("arch", ["minitron-8b", "qwen2-72b"])
+def test_dense_config_smokes_token_identity(arch):
+    """The two dense configs of this slice (qwen2-72b with its QKV bias):
+    their float32 smokes and make_draft_cfg drafts, bridged from JAX, give
+    the JAX engine's tokens and counts."""
+    from repro.configs import get_smoke as j_get_smoke
+    from repro.launch.serve import make_draft_cfg as j_make_draft_cfg
+    from repro_torch.configs import get_smoke as t_get_smoke
+    from repro_torch.launch.serve import make_draft_cfg as t_make_draft_cfg
+
+    jt, tt = j_get_smoke(arch).replace(dtype="float32"), t_get_smoke(arch).replace(dtype="float32")
+    jd, td = j_make_draft_cfg(jt), t_make_draft_cfg(tt)
+    init = jax.jit(j_init_params, static_argnums=0)
+    jtp, jdp = init(jt, jax.random.PRNGKey(0)), init(jd, jax.random.PRNGKey(1))
+    outs = []
+    for mod, args in ((jeng, (jt, jtp, jd, jdp)), (teng, (tt, bridge.params_from_jax(jax.tree.map(np.asarray, jtp),
+                                                                                   device="cpu"),
+                                                          td, bridge.params_from_jax(jax.tree.map(np.asarray, jdp),
+                                                                                     device="cpu")))):
+        eng = mod.SpeculativeEngine(*args, mod.EngineConfig("specinfer", 2, 1, 2, max_cache=64, seed=4))
+        outs.append((eng.generate([5, 1, 7, 2], max_new=10), dict(eng.counters)))
+    assert outs[1] == outs[0]
+
+
 def test_engine_refuses_what_is_not_ported(models):
     _, (tt, ttp, td, tdp) = models
     with pytest.raises(NotImplementedError, match="queue 1 item 11"):
         teng.SpeculativeEngine(tt, ttp, td, tdp, teng.EngineConfig(verify_on_device=True))
-    with pytest.raises(NotImplementedError, match="replay"):
-        teng.SpeculativeEngine(tt.replace(arch_type="ssm"), ttp, td, tdp, teng.EngineConfig())
+    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
+        teng.SpeculativeEngine(tt.replace(arch_type="encdec"), ttp, td, tdp, teng.EngineConfig()).new_stream([1, 2])
 
 
 def _random_tree(rng, K, L1, L2, vocab=6):

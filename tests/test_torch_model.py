@@ -16,7 +16,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from repro.configs import granite_3_2b, granite_8b, paper_llama70b_8b
+from repro.configs import granite_3_2b, granite_8b, minitron_8b, paper_llama70b_8b, qwen2_72b
 from repro.core.trees import tree_ancestor_mask
 from repro.models import transformer as jt
 from repro_torch import bridge
@@ -31,6 +31,8 @@ CONFIGS = {
     "paper-llama8b-draft": paper_llama70b_8b.smoke_draft(),
     "granite-8b": granite_8b.smoke(),
     "granite-3-2b": granite_3_2b.smoke(),  # tied embeddings
+    "minitron-8b": minitron_8b.smoke(),
+    "qwen2-72b": qwen2_72b.smoke(),  # QKV bias
 }
 
 
@@ -100,6 +102,6 @@ def test_init_params_layout_matches_jax():
 
 
 def test_non_dense_arch_raises():
-    tcfg = to_torch_cfg(granite_8b.smoke()).replace(arch_type="ssm")
+    tcfg = to_torch_cfg(granite_8b.smoke()).replace(arch_type="encdec")
     with pytest.raises(NotImplementedError, match="dense"):
         tt.init_cache(tcfg, 1, SMAX, "cpu")
