@@ -101,7 +101,24 @@
    prefill, a decode, a 3-token trunk decode from the state and a K = 2
    forked branch pass.  Phase 2 holds the tree kernels' head_dim-256
    instances at the hybrid's heads under its window mask.
-8. Prints the kernels' JSON line, then the card's line, then as the last
+8. The sharded engine and verification on the card: (a) phase 4's models
+   and traffic through ShardedBatchedSpeculativeEngine (8 rows in 2 shards
+   of 4, each its own arena), pipelined then synchronous: launch counts
+   exact (summed over the shards; commit_kv once a shard in each grouped
+   commit), pipelined == sync tokens, the grouped commit fired, commit
+   calls at most phase 4's + 2; streams equal to phase 4's reported; (b)
+   phase 7b's recurrentgemma-2b pair and traffic through it, pipelined,
+   replay strategy (per-shard commits), launch counts exact; (c) phase 3's
+   pair through SpeculativeEngine(verify_on_device=True), one specinfer
+   and one spectr request of 32 tokens, launch counts exact, every
+   verification on the card, a profile of one step (the verifier's
+   kernels, device and host time); (d) each device solver's law (V = 6,
+   20000 draws, a CUDA generator) against the numpy oracle, and the tree
+   walk's block law at 5000 draws; (e) granite-8b at full width cut to 4
+   target layers and a 1-layer draft in float32: how many of 3 streams the
+   batched engine serves as the single-stream one does, and of 12 the
+   sharded as the unsharded (reported).
+9. Prints the kernels' JSON line, then the card's line, then as the last
    line {"ok": true, "device": {...}}.  With ``--json-dir DIR`` it also
    writes the per-shape kernel table and a summary there as JSON.
 
@@ -1274,20 +1291,26 @@ def _serve_batched(torch, eng, prompts, max_new, seeds, layers, actions=None, ne
     read just after; check each equals its passes x layers.  ``actions``
     (an ActionLog the engine's selector writes) gives each step's trunk and
     branch depths; without it every step takes the engine's static action.
-    ``need_both``: the padded and the ragged tree pass must both have run."""
+    ``need_both``: the padded and the ragged tree pass must both have run.
+    A ShardedBatchedSpeculativeEngine's counts are summed over its shards:
+    each shard step runs its own passes, and a grouped commit is one
+    engine-level call that launches commit_kv once a shard."""
     counters = _launch_counters()
+    shards = getattr(eng, "shards", None)
     torch.cuda.synchronize()
     for fn in counters.values():
         fn.launches = 0
     first, last, seen = {}, {}, {}
-    commit_groups = 0  # replay: one target pass a step for each distinct commit length
+    commit_groups = 0  # replay: one target pass a shard step for each distinct commit length
     t0 = time.perf_counter()
     rids = [eng.submit(p, max_new=m, seed=sd) for p, m, sd in zip(prompts, max_new, seeds)]
+    routed = [eng.shard_of(r) for r in rids] if shards else None
+    owner = dict(zip(rids, routed)) if shards else {}  # requests never migrate
     while eng.queue or eng.streams:
         ts = time.perf_counter()
         events = eng.step()
         te = time.perf_counter()
-        commit_groups += len({len(ev["new_tokens"]) for ev in events})
+        commit_groups += len({(owner.get(ev["rid"], 0), len(ev["new_tokens"])) for ev in events})
         for ev in events:
             first.setdefault(ev["rid"], ts)
             seen.setdefault(ev["rid"], []).append(len(ev["new_tokens"]))
@@ -1327,17 +1350,20 @@ def _serve_batched(torch, eng, prompts, max_new, seeds, layers, actions=None, ne
         if not eng.paged:
             expected["tree_attention"] += n_drf * trunk
     else:
+        # every shard step commits once: alone, or in a grouped commit of all the shards
+        commits = (sum(sh.counters["commit_calls"] for sh in shards) + len(shards) * eng.grouped_commits
+                   if shards else c["commit_calls"])
         expected = {
             # the admission prefills (target + draft) and the branch steps of every step
             "tree_attention": len(prompts) * (n_tgt + n_drf) + n_drf * branch,
             # ingest and the trunk steps of every step, and the padded target passes
             "paged_tree_attention": n_drf * (steps + trunk) + n_tgt * c["padded_calls"],
             "ragged_paged_tree_attention": n_tgt * c["ragged_calls"],
-            "commit_kv": c["commit_calls"],
+            "commit_kv": commits,
             **{name: 0 for name in NO_ENGINE_PATH},
         }
-        if c["draft_calls"] != steps + trunk + branch or c["commit_calls"] != steps:
-            raise RuntimeError(f"draft calls {c['draft_calls']}, commits {c['commit_calls']} for {steps} steps "
+        if c["draft_calls"] != steps + trunk + branch or commits != steps:
+            raise RuntimeError(f"draft calls {c['draft_calls']}, commit launches {commits} for {steps} steps "
                                f"of {trunk} trunk and {branch} branch steps: expected {steps + trunk + branch} "
                                f"and {steps}")
     for name, want in expected.items():
@@ -1347,7 +1373,7 @@ def _serve_batched(torch, eng, prompts, max_new, seeds, layers, actions=None, ne
     if need_both and not (c["padded_calls"] and c["ragged_calls"]):
         raise RuntimeError(f"padded {c['padded_calls']} and ragged {c['ragged_calls']} tree passes: both must run")
     outs = {rid: eng.finished.pop(rid) for rid in rids}
-    vocab = eng.tc.vocab
+    vocab = (shards[0] if shards else eng).tc.vocab
     for rid, m in zip(rids, max_new):
         toks = outs[rid]["tokens"]
         if outs[rid]["reason"] != "length" or len(toks) != m or not all(0 <= t < vocab for t in toks):
@@ -1362,7 +1388,11 @@ def _serve_batched(torch, eng, prompts, max_new, seeds, layers, actions=None, ne
            "blocks_peak": c["blocks_peak"], "steps": steps, "padded_calls": c["padded_calls"],
            "ragged_calls": c["ragged_calls"], "pipeline_ahead": c["pipeline_ahead"],
            "pipeline_stalls": c["pipeline_stalls"], "launches": launches, "expected_launches": expected,
-           "tokens_per_step": [seen[r] for r in rids]}
+           "commit_calls": c["commit_calls"], "tokens_per_step": [seen[r] for r in rids]}
+    if shards:
+        res["grouped_commits"] = eng.grouped_commits
+        res["blocks_peak_per_shard"] = [sh.counters["blocks_peak"] for sh in shards]
+        res["requests_per_shard"] = [routed.count(i) for i in range(len(shards))]
     return tokens, res
 
 
@@ -1427,7 +1457,9 @@ def _profile_batched(torch, eng, prompts, seeds, n_steps, host_ops=True):
             "seconds": seconds}
 
 
-def phase_batched(torch):
+def phase_batched(torch, then=None):
+    """Phase 4; ``then(tcfg, tp, dcfg, dp, ctx)`` runs on its models and
+    traffic (ctx) before they are freed."""
     log("== phase 4: batched path, full-width granite-8b + draft, bf16, 8 rows, paged, ragged auto")
     import numpy as np
 
@@ -1487,7 +1519,11 @@ def phase_batched(torch):
     results["single_stream_matches"] = sum(r["match"] for r in singles)
     results["single_stream"] = singles
     results["max_memory_allocated"] = peak
-    results["profile"] = _profile_batched(torch, engine(True), prompts[:N_SLOTS], seeds[:N_SLOTS], 6)
+    # a short window: the whole script keeps within its time budget
+    results["profile"] = _profile_batched(torch, engine(True), prompts[:N_SLOTS], seeds[:N_SLOTS], 3)
+    if then is not None:
+        then(tcfg, tp, dcfg, dp, {"prompts": prompts, "max_new": max_new, "seeds": seeds, "layers": layers,
+                                  "tokens": tokens, "results": results})
     del tp, dp
     torch.cuda.empty_cache()
     return results
@@ -1660,7 +1696,8 @@ def phase_moe(torch):
     log(f"  pipelined tokens == sync tokens for all {N_REQUESTS} requests; max_memory_allocated "
         f"{peak / 2**30:.3f} GiB of {total / 2**30:.3f} GiB")
     results["max_memory_allocated"] = peak
-    results["profile"] = _profile_batched(torch, engine(True), prompts[:N_SLOTS], seeds[:N_SLOTS], 3)
+    # a short window: the whole script keeps within its time budget
+    results["profile"] = _profile_batched(torch, engine(True), prompts[:N_SLOTS], seeds[:N_SLOTS], 2)
     del tp, dp, eng
     gc.collect()
     torch.cuda.empty_cache()
@@ -2059,9 +2096,11 @@ def phase_recurrent_reference(torch, cfg, seed, title):
     return worst
 
 
-def phase_recurrent(torch):
+def phase_recurrent(torch, then=None):
     """7a-7c: each recurrent pair at full width through both engines, launch
-    counts exact; the long-context hybrid request."""
+    counts exact; the long-context hybrid request.  ``then(tcfg, tp, dcfg,
+    dp, ctx)`` runs on the hybrid pair and its traffic before they are
+    freed."""
     import gc
 
     import numpy as np
@@ -2157,6 +2196,9 @@ def phase_recurrent(torch):
             res["long_context"]["seconds"] = time.perf_counter() - t_arch - res["seconds"]
             log(f"  served 16 tokens after the prefill in {wall:.4f} s (prefill included), block_efficiency "
                 f"{be:.4f}, tree_attention launches {launches}; {outs[0]}")
+            if then is not None:
+                then(tcfg, tp, dcfg, dp, {"prompts": prompts, "max_new": max_new, "seeds": seeds, "layers": layers,
+                                          "tokens": tokens["pipelined"], "results": res})
         results[arch] = res
         del tp, dp, eng
         gc.collect()
@@ -2170,6 +2212,302 @@ def phase_recurrent(torch):
     results["seconds"] = time.perf_counter() - t_phase
     log(f"  phase 7 took {results['seconds']:.1f} s")
     return results, single_launches, batched_runs
+
+
+# ------------------ phase 8: the sharded engine, and verification on the card ---
+
+SHARDS = 2
+LAW_DRAWS, WALK_DRAWS = 20000, 5000
+# tests/test_torch_otlp_device.py holds each law to atol 0.04 at 4000 draws (about 5 standard errors);
+# at LAW_DRAWS the same margin in standard errors is 0.04 * sqrt(4000 / LAW_DRAWS).  The walk's
+# tolerance is the CPU test's at its own draw count.
+LAW_ATOL, WALK_WORST = 0.04 * (4000 / LAW_DRAWS) ** 0.5, 0.05
+
+
+def _sharded_engine(tcfg, tp, dcfg, dp, pipeline):
+    from repro_torch.serving.batch_engine import ShardedBatchedSpeculativeEngine
+    from repro_torch.serving.engine import EngineConfig, SamplingParams
+
+    return ShardedBatchedSpeculativeEngine(tcfg, tp, dcfg, dp, EngineConfig("specinfer", 2, 2, 2, 1024),
+                                           SamplingParams(1.0, 1.0), n_slots=N_SLOTS, data_shards=SHARDS,
+                                           paged=True, block_size=64, pipeline=pipeline)
+
+
+def _log_sharded(mode, r, extra=""):
+    log(f"  {mode}: {r['tokens']} tokens in {r['wall_s']:.4f} s = {r['tokens_per_s']:.3f} tok/s aggregate, "
+        f"per-stream median {r['per_stream_tokens_per_s_median']:.3f} tok/s, block_efficiency "
+        f"{r['block_efficiency']:.4f}, requests per shard {r['requests_per_shard']}, blocks peak per shard "
+        f"{r['blocks_peak_per_shard']}, commits {r['commit_calls']} ({r['grouped_commits']} grouped), "
+        f"steps {r['steps']} (padded {r['padded_calls']}, ragged {r['ragged_calls']}), launches {r['launches']}"
+        + extra)
+
+
+def phase_sharded_tree(torch, tcfg, tp, dcfg, dp, ctx):
+    """8a: phase 4's models and traffic through the sharded engine (8 rows in
+    2 shards of 4), pipelined then synchronous: launch counts exact,
+    pipelined == sync tokens, the grouped commit fired, and no more commit
+    calls than phase 4's + one a shard."""
+    log(f"== phase 8a: phase 4's traffic through ShardedBatchedSpeculativeEngine({N_SLOTS} rows, {SHARDS} shards), "
+        f"full-width granite-8b + draft, bf16, tree strategy")
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    results, tokens = {}, {}
+    for mode, pipeline in (("pipelined", True), ("sync", False)):
+        tokens[mode], r = _serve_batched(torch, _sharded_engine(tcfg, tp, dcfg, dp, pipeline), ctx["prompts"],
+                                         ctx["max_new"], ctx["seeds"], ctx["layers"], need_both=False)
+        results[mode] = r
+        limit = ctx["results"][mode]["commit_calls"] + SHARDS
+        _log_sharded(mode, r, f"; phase 4 unsharded: {ctx['results'][mode]['tokens_per_s']:.3f} tok/s, "
+                              f"{ctx['results'][mode]['commit_calls']} commits")
+        if not r["grouped_commits"]:
+            raise RuntimeError(f"8a {mode}: the grouped commit never fired")
+        if r["commit_calls"] > limit:
+            raise RuntimeError(f"8a {mode}: {r['commit_calls']} commit calls, more than phase 4's + {SHARDS} = {limit}")
+        r["matches_unsharded"] = sum(a == b for a, b in zip(tokens[mode], ctx["tokens"][mode]))
+    if tokens["pipelined"] != tokens["sync"]:
+        bad = [i for i, (a, b) in enumerate(zip(tokens["pipelined"], tokens["sync"])) if a != b]
+        raise RuntimeError(f"8a: pipelined tokens differ from synchronous tokens for requests {bad}")
+    results["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    results["seconds"] = time.perf_counter() - t_phase
+    log(f"  pipelined tokens == sync tokens for all {N_REQUESTS} requests; streams equal to phase 4's unsharded "
+        f"tokens: {results['sync']['matches_unsharded']} of {N_REQUESTS} (reported, not claimed: a shard's batch is "
+        f"{N_SLOTS // SHARDS} rows, not {N_SLOTS}); max_memory_allocated "
+        f"{results['max_memory_allocated'] / 2**30:.3f} GiB; phase 8a took {results['seconds']:.1f} s")
+    return results
+
+
+def phase_sharded_replay(torch, tcfg, tp, dcfg, dp, ctx):
+    """8b: phase 7b's recurrentgemma-2b pair and traffic through the sharded
+    engine, pipelined: launch counts exact; tokens against 7b's reported."""
+    log(f"== phase 8b: phase 7b's traffic through ShardedBatchedSpeculativeEngine({N_SLOTS} rows, {SHARDS} shards), "
+        f"full-width {tcfg.name} + draft, bf16, replay strategy, pipelined")
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    tokens, r = _serve_batched(torch, _sharded_engine(tcfg, tp, dcfg, dp, True), ctx["prompts"], ctx["max_new"],
+                               ctx["seeds"], ctx["layers"], need_both=False)
+    r["matches_unsharded"] = sum(a == b for a, b in zip(tokens, ctx["tokens"]))
+    r["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    _log_sharded("pipelined", r, f"; phase 7b unsharded: {ctx['results']['pipelined']['tokens_per_s']:.3f} tok/s")
+    r["seconds"] = time.perf_counter() - t_phase
+    log(f"  streams equal to phase 7b's unsharded tokens: {r['matches_unsharded']} of {N_REQUESTS} (reported); "
+        f"max_memory_allocated {r['max_memory_allocated'] / 2**30:.3f} GiB; phase 8b took {r['seconds']:.1f} s")
+    return r
+
+
+def _profile_device_verify(torch, eng, prompt):
+    """One step of ``eng`` (verify_on_device) under torch.profiler: the
+    verifier's window is a record_function range around each
+    ``_verify_device`` call; the device kernels that start inside it are the
+    verifier's (the tree pass's results reached the host before it began,
+    and it ends by reading its results back)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    inner = eng._verify_device
+
+    def marked(tree, solver):
+        with record_function("verify_on_device"):
+            return inner(tree, solver)
+
+    eng._verify_device = marked
+    stream = eng.new_stream(prompt)
+    eng.step(stream)  # a first step outside the window
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.step(stream)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    del eng._verify_device
+    events = list(prof.events())
+    spans = [e.time_range for e in events if e.name == "verify_on_device"
+             and e.device_type == torch.autograd.DeviceType.CPU]
+    if len(spans) != 1:
+        raise RuntimeError(f"expected one verification in the profiled step, saw {len(spans)}")
+    r0, r1 = spans[0].start, spans[0].end
+    device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+              and r0 <= e.time_range.start <= r1 and e.name != "verify_on_device"]
+    kernels = [e for e in device if not e.name.startswith(("Memcpy", "Memset"))]
+    if not kernels:
+        raise RuntimeError("no device kernel ran inside the verifier: it did not verify on the card")
+    busy = sum(e.time_range.elapsed_us() for e in device) / 1e3
+    step_busy = sum(e.time_range.elapsed_us() for e in events
+                    if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    host_ms = (r1 - r0) / 1e3
+    log(f"  profile of one step: wall {wall_ms:.2f} ms, device busy {step_busy:.2f} ms; the verifier: "
+        f"{len(kernels)} kernels + {len(device) - len(kernels)} copies, device busy {busy:.3f} ms, host span "
+        f"{host_ms:.2f} ms ({100 * host_ms / wall_ms:.1f} % of the step)")
+    return {"step_wall_ms": wall_ms, "step_device_busy_ms": step_busy, "verify_kernels": len(kernels),
+            "verify_copies": len(device) - len(kernels), "verify_device_ms": busy, "verify_host_ms": host_ms}
+
+
+def phase_device_verify(torch, tcfg, tp, dcfg, dp, main_path):
+    """8c: phase 3's pair through SpeculativeEngine(verify_on_device=True):
+    one request of 32 tokens with specinfer, one with spectr; tree_attention
+    launches exact; every verification on the card."""
+    log("== phase 8c: SpeculativeEngine(verify_on_device=True), full-width granite-8b + draft, bf16")
+    import numpy as np
+
+    from repro_torch.serving.engine import EngineConfig, SamplingParams, SpeculativeEngine
+
+    t_phase = time.perf_counter()
+    layers = (tcfg.n_layers, dcfg.n_layers)
+    prompt = np.random.default_rng(0).integers(0, tcfg.vocab, size=8).tolist()  # phase 3's first prompt
+    results, total = {}, 0
+    for verifier in ("specinfer", "spectr"):
+        eng = SpeculativeEngine(tcfg, tp, dcfg, dp, EngineConfig(verifier, 2, 2, 2, 1024, seed=0,
+                                                                 verify_on_device=True), SamplingParams(1.0, 1.0))
+        calls = [0]
+        inner = eng._verify_device
+
+        def counted(tree, solver, inner=inner, calls=calls):
+            calls[0] += 1
+            return inner(tree, solver)
+
+        eng._verify_device = counted
+        outs, wall, launches, be = _run_engine(torch, eng, [prompt], 32, layers)
+        if calls[0] != eng.counters["blocks"]:
+            raise RuntimeError(f"{verifier}: {calls[0]} device verifications for {eng.counters['blocks']} steps")
+        total += launches
+        results[verifier] = {"tokens_per_s": 32 / wall, "wall_s": wall, "block_efficiency": be,
+                             "launches": launches, "steps": eng.counters["blocks"]}
+        log(f"  {verifier} on the card: {32 / wall:.3f} tok/s, block_efficiency {be:.4f}, {eng.counters['blocks']} "
+            f"steps, all verified on the card, tree_attention launches {launches} (phase 3's host specinfer: "
+            f"{main_path['specinfer']['tokens_per_s']:.3f} tok/s); {outs[0]}")
+    eng = SpeculativeEngine(tcfg, tp, dcfg, dp, EngineConfig("specinfer", 2, 2, 2, 1024, seed=1,
+                                                             verify_on_device=True), SamplingParams(1.0, 1.0))
+    results["profile"] = _profile_device_verify(torch, eng, prompt)
+    results["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 8c took {results['seconds']:.1f} s")
+    return results, total
+
+
+def phase_solver_laws(torch):
+    """8d: each device solver on V = 6 with a CUDA generator against the numpy
+    oracle's output_dist, and the tree walk's block law against
+    verify_topdown_output_dist.  A failure raises."""
+    log(f"== phase 8d: the device solvers' laws on the card ({LAW_DRAWS} draws, atol {LAW_ATOL:.4f}; the tree walk "
+        f"{WALK_DRAWS} draws, worst block < {WALK_WORST})")
+    import numpy as np
+
+    from repro_torch.core.enumerate import RandomModel
+    from repro_torch.core.otlp import OTLP_SOLVERS
+    from repro_torch.core.otlp_device import SOLVERS_DEVICE, verify_topdown_batched
+    from repro_torch.core.trees import attach_target, build_delayed_tree
+    from repro_torch.core.verify import verify_topdown_output_dist
+
+    t_phase = time.perf_counter()
+    V, n = 6, LAW_DRAWS
+    rng = np.random.default_rng(3)
+    p, q = rng.dirichlet(np.ones(V)), rng.dirichlet(np.ones(V))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    P = torch.tensor(p, dtype=torch.float32, device="cuda")[None].repeat(n, 1)
+    Q = torch.tensor(q, dtype=torch.float32, device="cuda")[None].repeat(n, 1)
+    valid = torch.ones((n, 2), dtype=torch.bool, device="cuda")
+    results = {}
+    for solver in ("nss", "naive", "spectr", "specinfer", "khisti"):
+        for xs in ([1, 4], [0, 5]):
+            want = OTLP_SOLVERS[solver][1](p, q, xs)
+            X = torch.tensor([xs], device="cuda").repeat(n, 1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ys = SOLVERS_DEVICE[solver](P, Q, X, valid, gen)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            if not ys.is_cuda:
+                raise RuntimeError(f"{solver} did not solve on the card")
+            err = float(np.abs(np.bincount(ys.cpu().numpy(), minlength=V) / n - want).max())
+            results[f"{solver} xs={xs}"] = {"max_abs_err": err, "ms": ms}
+            log(f"  {solver:9s} xs={xs}: max |freq - law| {err:.4f} ({n} problems in one call, {ms:.2f} ms wall)")
+            if err > LAW_ATOL:
+                raise RuntimeError(f"{solver} xs={xs}: the card's law is {err} from the oracle's (atol {LAW_ATOL})")
+    model = RandomModel(4, seed=5, divergence=0.6)
+    tree = attach_target(build_delayed_tree(np.random.default_rng(0), model.q, 2, 1, 1), model.p)
+    N, m = tree.n_nodes, 8
+    arrs = [np.full(m, -1, np.int64), np.full(m, -1, np.int64), np.zeros((m, 4), np.float32),
+            np.zeros((m, 4), np.float32)]
+    arrs[0][:N], arrs[1][:N], arrs[2][:N], arrs[3][:N] = tree.tokens, tree.parent, tree.p, tree.q
+    arrs = [torch.as_tensor(a, device="cuda")[None].expand((WALK_DRAWS,) + a.shape) for a in arrs]
+    for solver in ("specinfer", "spectr", "naivetree"):
+        want = verify_topdown_output_dist(tree, solver)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out_tok, n_acc, corr = verify_topdown_batched(*arrs, gen, solver=solver, max_depth=4, max_children=4)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        got: dict = {}
+        for row, k, c in zip(out_tok.tolist(), n_acc.tolist(), corr.tolist()):
+            blk = tuple(row[:k]) + (c,)
+            got[blk] = got.get(blk, 0) + 1.0 / WALK_DRAWS
+        worst = max(abs(want.get(k, 0) - got.get(k, 0)) for k in set(want) | set(got))
+        results[f"walk {solver}"] = {"worst": worst, "ms": ms}
+        log(f"  tree walk {solver:9s}: worst |freq - law| over blocks {worst:.4f} ({WALK_DRAWS} trees in one "
+            f"batched call, {ms:.2f} ms wall)")
+        if worst > WALK_WORST:
+            raise RuntimeError(f"tree walk {solver}: the card's block law is {worst} from the oracle's")
+    seconds = time.perf_counter() - t_phase
+    log(f"  phase 8d took {seconds:.1f} s")
+    return {"laws": results, "seconds": seconds}
+
+
+F32_TARGET_LAYERS, F32_DRAFT_LAYERS = 4, 1
+
+
+def phase_float32_match(torch):
+    """8e: granite-8b at full width cut to 4 target layers and a 1-layer
+    draft, float32: how many of 3 streams the batched engine serves as the
+    single-stream engine does, and how many of 12 the sharded engine serves
+    as the unsharded one does (ROADMAP queue 3).  Launch counts exact;
+    the match counts are reported, not claimed."""
+    log(f"== phase 8e: granite-8b at full width, {F32_TARGET_LAYERS} target and {F32_DRAFT_LAYERS} draft layers, "
+        f"float32: batched == single-stream, sharded == unsharded")
+    import gc
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import make_draft_cfg
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving.batch_engine import BatchedSpeculativeEngine
+    from repro_torch.serving.engine import EngineConfig, SamplingParams, SpeculativeEngine
+
+    t_phase = time.perf_counter()
+    full = get_config("granite-8b")
+    tcfg = full.replace(n_layers=F32_TARGET_LAYERS, dtype="float32")
+    dcfg = make_draft_cfg(full).replace(n_layers=F32_DRAFT_LAYERS, dtype="float32")
+    tp = init_params(tcfg, torch.Generator(device="cuda").manual_seed(0))
+    dp = init_params(dcfg, torch.Generator(device="cuda").manual_seed(1))
+    layers = (tcfg.n_layers, dcfg.n_layers)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, tcfg.vocab, size=8).tolist() for _ in range(N_REQUESTS)]
+    max_new = [16 + (32 * i) // (N_REQUESTS - 1) for i in range(N_REQUESTS)]
+    seeds = [100 + i for i in range(N_REQUESTS)]
+    sampling = SamplingParams(1.0, 1.0)
+    unsharded = BatchedSpeculativeEngine(tcfg, tp, dcfg, dp, EngineConfig("specinfer", 2, 2, 2, 1024), sampling,
+                                         n_slots=N_SLOTS, paged=True, block_size=64, pipeline=True)
+    toks_u, res_u = _serve_batched(torch, unsharded, prompts, max_new, seeds, layers, need_both=False)
+    toks_s, res_s = _serve_batched(torch, _sharded_engine(tcfg, tp, dcfg, dp, True), prompts, max_new, seeds,
+                                   layers, need_both=False)
+    single_launches, singles = 0, []
+    for i in range(3):
+        eng = SpeculativeEngine(tcfg, tp, dcfg, dp, EngineConfig("specinfer", 2, 2, 2, 1024, seed=seeds[i]),
+                                sampling)
+        outs, _, launches, _ = _run_engine(torch, eng, [prompts[i]], max_new[i], layers)
+        single_launches += launches
+        singles.append(_first_divergence(outs[0], toks_u[i]))
+    results = {"batched_matches_single_of_3": sum(d is None for d in singles),
+               "first_diverging_token": singles,
+               "sharded_matches_unsharded_of_12": sum(a == b for a, b in zip(toks_s, toks_u)),
+               "unsharded": res_u, "sharded": res_s}
+    log(f"  float32: batched == single-stream for {results['batched_matches_single_of_3']} of 3 streams (first "
+        f"diverging tokens {singles}); sharded == unsharded for {results['sharded_matches_unsharded_of_12']} of "
+        f"{N_REQUESTS}; block_efficiency {res_u['block_efficiency']:.4f} unsharded, "
+        f"{res_s['block_efficiency']:.4f} sharded; launches exact")
+    del tp, dp, unsharded, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    results["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 8e took {results['seconds']:.1f} s")
+    return results, [res_u["launches"], res_s["launches"]], single_launches
 
 
 
@@ -2197,7 +2535,18 @@ def main():
                        "paged_decode_attention": paged_decode_attention.launches}
     main_path, launches = phase_main_path(torch)
     ref_err = phase_reference(torch, make_draft_cfg(get_config("granite-8b")).replace(dtype="float32"), 2)
-    batched = phase_batched(torch)
+    # phase 8 (a, c) runs on phase 4's granite models, which are phase 3's (the same seeds), and
+    # 8b on phase 7b's recurrentgemma pair, before either is freed
+    phase8 = {}
+
+    def granite_phase8(tcfg, tp, dcfg, dp, ctx):
+        phase8["a"] = phase_sharded_tree(torch, tcfg, tp, dcfg, dp, ctx)
+        phase8["c"], phase8["c_launches"] = phase_device_verify(torch, tcfg, tp, dcfg, dp, main_path)
+
+    def hybrid_phase8(tcfg, tp, dcfg, dp, ctx):
+        phase8["b"] = phase_sharded_replay(torch, tcfg, tp, dcfg, dp, ctx)
+
+    batched = phase_batched(torch, then=granite_phase8)
     batched_ref_err = phase_batched_reference(
         torch, make_draft_cfg(get_config("granite-8b")).replace(dtype="float32"), 3)
     moe, moe_launches = phase_moe(torch)
@@ -2206,14 +2555,21 @@ def main():
         phase_reference(torch, moe_draft32, 6, "phase 5b: the MoE draft cut to 2 layers"),
         phase_batched_reference(torch, moe_draft32, 7, "phase 5c: batched passes of the MoE draft cut to 2 layers"))
     nde, nde_single_launches, nde_batched_runs = phase_nde(torch, smi)
-    recurrent, rec_single_launches, rec_batched_runs = phase_recurrent(torch)
+    recurrent, rec_single_launches, rec_batched_runs = phase_recurrent(torch, then=hybrid_phase8)
+    phase8["d"] = phase_solver_laws(torch)
+    phase8["e"], f32_batched_runs, f32_single_launches = phase_float32_match(torch)
+    phase8["seconds"] = sum(phase8[k]["seconds"] for k in "abcde")
+    log(f"  phase 8 took {phase8['seconds']:.1f} s")
 
-    # each kernel's launches over every main-path run (phases 3, 5, 6 and 7 single stream, both
-    # runs of phases 4, 5, 6e and 7); its times at the hottest shape of its path, in bf16
+    # each kernel's launches over every main-path run (phases 3, 5, 6, 7, 8c and 8e single stream,
+    # both runs of phases 4, 5, 6e, 7, 8a and 8e, 8b's); its times at the hottest shape of its path, in bf16
     runs = [batched["pipelined"]["launches"], batched["sync"]["launches"],
-            moe["pipelined"]["launches"], moe["sync"]["launches"], *nde_batched_runs, *rec_batched_runs]
+            moe["pipelined"]["launches"], moe["sync"]["launches"], *nde_batched_runs, *rec_batched_runs,
+            phase8["a"]["pipelined"]["launches"], phase8["a"]["sync"]["launches"], phase8["b"]["launches"],
+            *f32_batched_runs]
     total = {name: sum(r[name] for r in runs) for name in runs[0]}
-    total["tree_attention"] += launches + moe_launches + nde_single_launches + rec_single_launches
+    total["tree_attention"] += (launches + moe_launches + nde_single_launches + rec_single_launches
+                                + phase8["c_launches"] + f32_single_launches)
     headline = {"tree_attention": "target tree pass", "paged_tree_attention": "paged target tree pass",
                 "ragged_paged_tree_attention": "ragged target pass, 8 owners",
                 "commit_kv": "36-layer arena, B*P = 32, chains + trash padding",
@@ -2256,7 +2612,8 @@ def main():
     summary = {"main_path": main_path, "draft_card_vs_cpu_rel_err": ref_err, "batched": batched,
                "in_engine_device_time_per_call": in_engine,
                "batched_draft_card_vs_cpu_rel_err": batched_ref_err, "moe": moe,
-               "moe_draft_card_vs_cpu_rel_err": moe_ref_err, "nde": nde, "recurrent": recurrent, "nvidia_smi": smi,
+               "moe_draft_card_vs_cpu_rel_err": moe_ref_err, "nde": nde, "recurrent": recurrent, "phase8": phase8,
+               "nvidia_smi": smi,
                "seconds": time.perf_counter() - t_start}
     if args.json_dir:
         args.json_dir.mkdir(parents=True, exist_ok=True)

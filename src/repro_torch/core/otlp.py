@@ -14,9 +14,9 @@ Branching probabilities (Def. 5.3 / Appendix D) are ``output_dist[xs]``.
 Losslessness (the OTLP property)  E_{xs ~ q^k}[output_dist(p,q,xs)] == p
 is verified by exact enumeration in the tests.
 
-Host-side numpy in float64: these functions are the *oracle* layer.  The
-serving engine uses the jittable versions in ``repro.core.otlp_jax`` which are
-tested against these.
+Host-side numpy in float64: these functions are the *oracle* layer.  Under
+``verify_on_device`` the serving engine uses the device versions in
+``core/otlp_device.py``, which are tested against these.
 """
 from __future__ import annotations
 

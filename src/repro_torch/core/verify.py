@@ -189,7 +189,7 @@ class VerifierSpec:
 
     multipath : handles branching trees (K >= 2); single-path verifiers
                 (naive_single, bv) require K == 1 drafts.
-    on_device : has a batched on-device OT solve (core/otlp_jax.py) behind
+    on_device : has a batched on-device OT solve (core/otlp_device.py) behind
                 ``EngineConfig.verify_on_device`` — the top-down OT family.
     cite      : short provenance string surfaced by docs and the matrix
                 harness.

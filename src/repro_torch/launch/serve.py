@@ -8,14 +8,22 @@
         --arch qwen3-moe-235b-a22b --streams 8
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --smoke \
         --arch recurrentgemma-2b --streams 4
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --smoke \
+        --arch granite-8b --streams 4 --requests 6 --data-shards 2
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --smoke \
+        --arch granite-8b --verifier spectr --verify-on-device
 
 The counterpart of src/repro/launch/serve.py: builds a target and a
 proportionally smaller draft of the same family with random weights drawn
 from ``--seed``, serves synthetic requests through the single-stream
 speculative engine, or with ``--streams N`` through the continuous-batching
 engine over an N-row pool (paged, ragged auto-dispatch and pipelined
-stepping by default, as in the JAX launcher), and reports block efficiency
-and throughput.  The SSM and hybrid targets (mamba2-2.7b,
+stepping by default, as in the JAX launcher), with ``--data-shards N``
+through the sharded engine (N slot shards, each its own arena), and reports
+block efficiency and throughput.  ``--verify-on-device`` verifies the
+single-stream engine's top-down OT verifiers on the device (the JAX
+launcher has no such flag; its engines take ``verify_on_device`` in
+``EngineConfig``).  The SSM and hybrid targets (mamba2-2.7b,
 recurrentgemma-2b) take the replay target-pass strategy; a pure SSM pool
 has no KV to page.  It runs on
 ``--device cuda`` (the default) and raises when no CUDA device is present;
@@ -32,7 +40,7 @@ import torch
 from repro_torch.configs import get_config, get_smoke
 from repro_torch.core.verify import verifier_names
 from repro_torch.models.transformer import init_params
-from repro_torch.serving.batch_engine import BatchedSpeculativeEngine
+from repro_torch.serving.batch_engine import BatchedSpeculativeEngine, ShardedBatchedSpeculativeEngine
 from repro_torch.serving.engine import EngineConfig, SamplingParams, SpeculativeEngine
 
 
@@ -84,11 +92,15 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="device the models run on (cuda, or cpu for the plain versions)")
+    ap.add_argument("--verify-on-device", action="store_true",
+                    help="single stream: verify the top-down OT verifiers on the device "
+                         "(core/otlp_device.py); the batched engines refuse it, as in JAX")
     ap.add_argument("--streams", type=int, default=0,
                     help="continuous batching: serve through an N-slot cache pool "
                          "(0 = sequential single-stream engine)")
     ap.add_argument("--data-shards", type=int, default=1,
-                    help="shard the pool's stream axis: not ported (ROADMAP queue 1 item 8)")
+                    help="with --streams: split the pool into N slot shards, each with its own "
+                         "arena and free list, routed by one scheduler (N > 1)")
     ap.add_argument("--block-size", type=int, default=64,
                     help="paged KV pool block size in tokens (rounded down to "
                          "the nearest power of two dividing max_cache)")
@@ -110,8 +122,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.data_shards > 1:
-        raise NotImplementedError("--data-shards (sharded streams) is not ported: ROADMAP queue 1 item 8")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda but torch.cuda.is_available() is false; "
@@ -123,7 +133,7 @@ def main(argv=None):
     dp = init_params(dcfg, torch.Generator(device=device).manual_seed(args.seed + 1))
 
     ecfg = EngineConfig(verifier=args.verifier, K=args.K, L1=args.L1, L2=args.L2,
-                        max_cache=1024, seed=args.seed)
+                        max_cache=1024, seed=args.seed, verify_on_device=args.verify_on_device)
     sampling = SamplingParams(args.temperature, args.top_p)
     rng = np.random.default_rng(args.seed)
     if args.streams:
@@ -139,7 +149,8 @@ def main(argv=None):
     c = eng.counters
     be = c["accepted"] / max(c["blocks"], 1) + 1
     print(
-        f"\nverifier={args.verifier} ({args.K},{args.L1},{args.L2}) "
+        f"\nverifier={args.verifier}{' on the device' if args.verify_on_device else ''} "
+        f"({args.K},{args.L1},{args.L2}) "
         f"block_efficiency={be:.3f} target_calls={c['target_calls']} "
         f"draft_tokens={c['draft_tokens']} wall={dt:.1f}s "
         f"tokens/s({device.type})={args.requests * args.max_new / dt:.2f}"
@@ -147,10 +158,12 @@ def main(argv=None):
 
 
 def serve_batched(args, cfg, tp, dcfg, dp, ecfg, sampling, rng, device):
-    eng = BatchedSpeculativeEngine(cfg, tp, dcfg, dp, ecfg, sampling, n_slots=args.streams,
-                                   paged=not args.ring, block_size=args.block_size,
-                                   pool_blocks=args.pool_blocks or None, pipeline=args.pipeline,
-                                   ragged=args.ragged)
+    kw = dict(n_slots=args.streams, paged=not args.ring, block_size=args.block_size,
+              pool_blocks=args.pool_blocks or None, pipeline=args.pipeline, ragged=args.ragged)
+    if args.data_shards > 1:
+        eng = ShardedBatchedSpeculativeEngine(cfg, tp, dcfg, dp, ecfg, sampling, data_shards=args.data_shards, **kw)
+    else:
+        eng = BatchedSpeculativeEngine(cfg, tp, dcfg, dp, ecfg, sampling, **kw)
     t0 = time.perf_counter()
     rids = [eng.submit(rng.integers(0, cfg.vocab, size=8).tolist(), max_new=args.max_new, seed=args.seed + r)
             for r in range(args.requests)]
@@ -168,6 +181,10 @@ def serve_batched(args, cfg, tp, dcfg, dp, ecfg, sampling, rng, device):
         f"peak={c['blocks_peak']} used, reclaimed={c['blocks_reclaimed']})")
     stepping = (f"pipelined(ahead={c['pipeline_ahead']}, stalls={c['pipeline_stalls']}"
                 f"/{c['pipeline_iterations']} iters)" if args.pipeline else "sync")
+    if args.data_shards > 1:
+        per = [sh.counters["blocks_peak"] for sh in eng.shards]
+        stepping += (f" shards={args.data_shards}(x{eng.n_slots // args.data_shards} slots, peaks={per}, "
+                     f"commits={c['commit_calls']} of which {eng.grouped_commits} grouped)")
     print(
         f"\n[batched x{args.streams}] verifier={args.verifier} ({args.K},{args.L1},{args.L2}) "
         f"block_efficiency={be:.3f} target_calls={c['target_calls']} "

@@ -585,6 +585,19 @@ class PagedCachePool(CachePool):
         """How many of the blocks covering [0, upto) row ``slot`` has yet to map."""
         return int(np.sum(self._tbl[slot, :self.blocks_for(upto)] < 0))
 
+    def occupancy(self, frontiers=None) -> dict:
+        """Arena counters: blocks used/free and internal fragmentation
+        (mapped slots holding no live token, as a share of mapped slots).
+        ``frontiers`` maps row -> live slot count."""
+        used = self.used_blocks
+        frag = 0.0
+        if frontiers and used:
+            mapped = sum(int(np.sum(self._tbl[s] >= 0)) for s in frontiers) * self.block
+            live = sum(min(f, self.max_blocks * self.block) for f in frontiers.values())
+            frag = max(0.0, 1.0 - live / mapped) if mapped else 0.0
+        return {"blocks_total": self.total_blocks, "blocks_used": used, "blocks_free": self.free_blocks,
+                "block_size": self.block, "fragmentation": frag}
+
     def _sync_tbl(self) -> None:
         attn = dict(self.cache["attn"])
         attn["block_tbl"] = torch.tensor(self._tbl, device=attn["block_tbl"].device)  # a copy

@@ -1,3 +1,3 @@
-from repro_torch.sampling.warp import warp_logits, warp_probs
+from repro_torch.sampling.warp import sample_categorical, warp_logits, warp_probs
 
-__all__ = ["warp_logits", "warp_probs"]
+__all__ = ["sample_categorical", "warp_logits", "warp_probs"]

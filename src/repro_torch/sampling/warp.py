@@ -2,8 +2,8 @@
 
 The counterpart of src/repro/sampling/warp.py.  All verification works on
 *warped* target and draft distributions; losslessness is always w.r.t. the
-warped target distribution.  (``sample_categorical`` comes with on-device
-verification, ROADMAP queue 1 item 11.)
+warped target distribution.  ``sample_categorical`` is the on-device
+verifier's sampler (core/otlp_device.py).
 """
 from __future__ import annotations
 
@@ -38,3 +38,16 @@ def warp_probs(probs: torch.Tensor, top_p: float = 1.0) -> torch.Tensor:
     keep = torch.zeros_like(keep_sorted).scatter(-1, sort_idx, keep_sorted)
     filtered = torch.where(keep, probs, 0.0)
     return filtered / filtered.sum(dim=-1, keepdim=True)
+
+
+def sample_categorical(probs: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """Draw one index per row of ``probs`` (last axis = vocab) by Gumbel-max
+    on the clipped log-probabilities, from ``generator`` (on the tensor's
+    device).  A zero-probability entry is never drawn (unless the whole row
+    is zero: then index 0).  The law of the JAX sampler, not its random
+    stream: torch cannot reproduce ``jax.random``."""
+    logp = torch.log(probs.clamp_min(1e-30))
+    u = torch.rand(probs.shape, generator=generator, device=probs.device, dtype=torch.float32)
+    gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))
+    gumbel = torch.where(probs > 0, gumbel, -torch.inf)
+    return torch.argmax(logp + gumbel, dim=-1)

@@ -49,8 +49,12 @@ scatter keeps it; a
 pipelined step's recurrent draft pool is rewound from a copied back frame
 (``CachePool.begin_frame``).
 
-Not ported here: sharding over a mesh (ROADMAP queue 1 item 8) and
-on-device verification (item 11).
+``ShardedBatchedSpeculativeEngine`` splits the pool into ``data_shards``
+slot shards, each a ``BatchedSpeculativeEngine`` with its own rows and
+arena on the weights' device, routed by a bin-packing scheduler; the
+tree strategy commits every verified shard in one grouped commit.  The
+batched engines verify on the host only: ``verify_on_device`` is refused,
+as in JAX.
 """
 from __future__ import annotations
 
@@ -64,6 +68,7 @@ import torch
 from repro_torch.core.traversal import delayed_structure
 from repro_torch.core.trees import DraftTree
 from repro_torch.core.verify import get_verifier
+from repro_torch.launch.sharding import pad_slots, pool_shardings
 from repro_torch.models.cache import (
     PagedCachePool,
     concat_streams,
@@ -84,7 +89,7 @@ from repro_torch.serving.engine import (
 )
 from repro_torch.serving.serve_step import (
     StagingBuffers,
-    make_pool_commit_step,
+    make_group_commit_step,
     make_pool_decode_step,
     make_pool_locked_step,
     make_pool_ragged_tree_step,
@@ -95,6 +100,12 @@ from repro_torch.serving.serve_step import (
 
 def _host(t: torch.Tensor) -> np.ndarray:
     return t.float().cpu().numpy()
+
+
+def _wait(device: torch.device) -> None:
+    """Block until the device has run everything queued on it."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 class HostCopy:
@@ -176,7 +187,16 @@ class BatchedSpeculativeEngine:
     and returns per-request progress; ``run()`` drains the queue and returns
     ``{rid: {"tokens", "reason"}}``.  The weights' device is the engine's
     device.  ``ragged``: True (auto: ragged whenever the flat buffer ships
-    fewer lanes than the padded block), ``"always"`` or False."""
+    fewer lanes than the padded block), ``"always"`` or False.
+
+    ``mesh``: the device this engine's pool lives on (one shard of
+    ``ShardedBatchedSpeculativeEngine``, which passes ``shard_id`` too;
+    launch/sharding.pool_shardings places the pool).  It must be the
+    weights' device: a shard on another card than its weights is ROADMAP
+    queue 1 item 8b.  ``profile_commits``: when set, ``commit_ms`` waits
+    for the commit to finish on the device instead of timing the host's
+    dispatch only (blocking every step would serialize the host against the
+    device work the pipeline hides)."""
 
     def __init__(self, target_cfg, target_params, draft_cfg, draft_params,
                  ecfg: EngineConfig, sampling: SamplingParams | None = None,
@@ -187,10 +207,9 @@ class BatchedSpeculativeEngine:
             raise ValueError(f"target vocab {target_cfg.vocab} != draft vocab {draft_cfg.vocab}")
         if n_slots < 1:
             raise ValueError(f"need at least one pool slot, got {n_slots}")
-        if mesh is not None or shard_id:
-            raise NotImplementedError("sharding the pool over a mesh is not ported: ROADMAP queue 1 item 8")
         if ecfg.verify_on_device:
-            raise NotImplementedError("on-device verification is not ported: ROADMAP queue 1 item 11")
+            raise ValueError("batched serving verifies per-stream on host (verify_on_device consumes "
+                             "randomness differently and would break batch-vs-single exactness)")
         get_verifier(ecfg.verifier)  # fail loudly on unknown names, at build time
         self.tc, self.tp = target_cfg, target_params
         self.dc, self.dp = draft_cfg, draft_params
@@ -202,6 +221,7 @@ class BatchedSpeculativeEngine:
         self.sampling = sampling or SamplingParams()
         self.selector = selector
         self.n_slots = n_slots
+        self.mesh, self.shard_id = mesh, shard_id
         self.strategy = "replay" if target_cfg.arch_type in RECURRENT else "tree"
         smax = ecfg.max_cache
         page = None
@@ -216,8 +236,16 @@ class BatchedSpeculativeEngine:
                 raise ValueError("the arena needs at least one usable block")
             self.pool_blocks = pool_blocks
             page = (pool_blocks, bs)
-        self.tpool = make_cache_pool(init_cache(target_cfg, n_slots, smax, self.device, True, page), n_slots)
-        self.dpool = make_cache_pool(init_cache(draft_cfg, n_slots, smax, self.device, True, page), n_slots)
+        tcache = init_cache(target_cfg, n_slots, smax, self.device, True, page)
+        dcache = init_cache(draft_cfg, n_slots, smax, self.device, True, page)
+        if mesh is not None:
+            tcache, dcache = pool_shardings(mesh, tcache), pool_shardings(mesh, dcache)
+            placed = (tcache["attn"] if "attn" in tcache else tcache)["len"].device
+            if placed != self.device:
+                raise ValueError(f"the shard's device {placed} is not its weights' device {self.device}: "
+                                 "shards on other cards than the weights are ROADMAP queue 1 item 8b")
+        self.tpool = make_cache_pool(tcache, n_slots)
+        self.dpool = make_cache_pool(dcache, n_slots)
         # pure-recurrent caches have no attention component to page
         self.paged = bool(self._paged_pools())
         self.ragged = ragged
@@ -235,6 +263,7 @@ class BatchedSpeculativeEngine:
         self._staging = StagingBuffers(self.device, banks=2 if pipeline else 1)
         self._pending_next: PendingStep | None = None
         self._drained_events: list[dict] = []
+        self.profile_commits = False
         self._steps = {
             "ingest": make_pool_decode_step(draft_cfg),
             "trunk": make_pool_locked_step(draft_cfg),
@@ -245,7 +274,7 @@ class BatchedSpeculativeEngine:
         # construction; pad_fraction = pad_nodes_total / tree_lanes_total
         self.counters = {"target_calls": 0, "target_tokens": 0, "draft_calls": 0,
                          "draft_tokens": 0, "accepted": 0, "blocks": 0, "evicted": 0,
-                         "commit_calls": 0, "commit_ms": 0.0,  # commit_ms: host time to dispatch
+                         "commit_calls": 0, "commit_ms": 0.0,  # see profile_commits
                          "blocks_reclaimed": 0, "admit_blocked": 0, "blocks_peak": 0,
                          "pad_nodes_total": 0, "tree_lanes_total": 0,
                          "pipeline_ahead": 0, "pipeline_stalls": 0,
@@ -315,6 +344,22 @@ class BatchedSpeculativeEngine:
         self.queue.append(BatchRequest(rid, list(prompt), max_new,
                                        self.ecfg.seed if seed is None else seed))
         return rid
+
+    def can_admit(self, prompt_len: int) -> bool:
+        """Whether a fresh request of ``prompt_len`` tokens would be admitted
+        at the next scheduling boundary without queueing: a free pool row,
+        an empty FIFO (admission is strictly in order) and, paged, enough
+        free blocks for its context plus one speculation bucket.  Dead-tail
+        reclamation is not counted: the sharded scheduler routing on this
+        probe must not promise capacity a resident stream's next step could
+        take back."""
+        if self.queue or not self.tpool.free_slots or not self.dpool.free_slots:
+            return False
+        if self.paged:
+            need = self._admit_need(prompt_len)
+            if any(p.free_blocks < need for p in self._paged_pools()):
+                return False
+        return True
 
     def _prefill_row(self, cfg, params, ctx):
         """Prefill a fresh 1-row per-stream cache with ``ctx`` tokens: a
@@ -508,6 +553,13 @@ class BatchedSpeculativeEngine:
             self.counters["blocks_peak"] = max(self.counters["blocks_peak"], self.tpool.used_blocks)
         return evicted
 
+    def pool_occupancy(self) -> dict:
+        """Arena occupancy (blocks used/free, fragmentation) of each paged
+        pool; empty for an engine with no paged pool."""
+        fr = {s: len(st["committed"]) for s, st in self.streams.items()}
+        return {name: pool.occupancy(fr) for name, pool in (("target", self.tpool), ("draft", self.dpool))
+                if isinstance(pool, PagedCachePool)}
+
     def _draft_trees(self, active, acts, q0, pads):
         """Lockstep-draft every stream's (K, L1, L2) delayed tree.  The trunk
         steps write into the draft pool's arena in place but keep its pos and
@@ -684,15 +736,6 @@ class BatchedSpeculativeEngine:
             act[s] = True
         return npath, plen, Cb, act, P
 
-    def _commit_tree_batch(self, active, node_paths, Tpad):
-        """ONE fused commit of every active row's accepted path."""
-        npath, plen, Cb, act, _ = self._commit_tables(active, node_paths)
-        t0 = time.perf_counter()
-        self.tpool.cache = make_pool_commit_step(Tpad)(
-            self.tpool.cache, *(self._up(a) for a in (npath, plen, Cb, act)))
-        self.counters["commit_calls"] += 1
-        self.counters["commit_ms"] += (time.perf_counter() - t0) * 1e3
-
     # --------------------------------------------------- target: replay -----
 
     def _target_replay(self, active, trees, Kp):
@@ -772,6 +815,8 @@ class BatchedSpeculativeEngine:
                 hid_last[s] = hid[i, L - 1]
         t0 = time.perf_counter()
         self.tpool.cache = self._scatter_rows(snapshot, trims, all_rows)
+        if self.profile_commits:
+            _wait(self.device)
         self.counters["commit_calls"] += 1
         self.counters["commit_ms"] += (time.perf_counter() - t0) * 1e3
         return hid_last
@@ -885,7 +930,7 @@ class BatchedSpeculativeEngine:
         also yields the last hidden states).  Runs before ``retire_step``
         extends ``committed`` (the commit indices are pre-block)."""
         if self.strategy == "tree":
-            self._commit_tree_batch(v.pending.active, v.node_paths, v.pending.pads[3])
+            _commit_trees([self], [v], self.counters)
         else:
             v.hid_last = self._commit_replay(v.pending.active, v.pending.snapshot, v.accepted)
 
@@ -1074,3 +1119,318 @@ class BatchedSpeculativeEngine:
         rids = [self.submit(p, max_new, None if seeds is None else seeds[i]) for i, p in enumerate(prompts)]
         out = self.run()
         return [out[r]["tokens"] for r in rids]
+
+
+def _commit_trees(engines, verified, counters) -> None:
+    """ONE commit call over the accepted paths of each engine's verified
+    step (serve_step.make_group_commit_step: one ``commit_kv`` launch an
+    engine's pool), counted in ``counters``: an engine's own commit, or a
+    sharded engine's grouped commit of its shards.  ``commit_ms`` is the
+    host's dispatch, or the device's finish under ``profile_commits``."""
+    tables = [eng._commit_tables(v.pending.active, v.node_paths)[:4] for eng, v in zip(engines, verified)]
+    t0 = time.perf_counter()
+    args = [tuple(eng._up(a) for a in tab) for eng, tab in zip(engines, tables)]
+    caches = make_group_commit_step([v.pending.pads[3] for v in verified])(
+        tuple(eng.tpool.cache for eng in engines), *zip(*args))
+    for eng, cache in zip(engines, caches):
+        eng.tpool.cache = cache
+    if engines[0].profile_commits:
+        _wait(engines[0].device)
+    counters["commit_calls"] += 1
+    counters["commit_ms"] += (time.perf_counter() - t0) * 1e3
+
+
+class ShardedBatchedSpeculativeEngine:
+    """The continuous-batching pool split into ``data_shards`` slot shards.
+
+    The counterpart of ``ShardedBatchedSpeculativeEngine`` in
+    src/repro/serving/batch_engine.py.  Each shard is an independent
+    ``BatchedSpeculativeEngine`` over its own rows and (paged) its own
+    private block arena: shard-local free lists, block tables, admission
+    FIFO, pressure reclamation and eviction, its pool placed on the
+    weights' device (launch/sharding.pool_shardings).
+
+    The only cross-shard state is the scheduler: ``submit()`` routes each
+    request to a shard that can admit it now (``can_admit``), bin-packing on
+    the request's expected (K, L1, L2) action first (``_pack_cost``: streams
+    of the same speculation bucket land together so each shard's Tpad stays
+    tight), least-loaded breaking ties and taking over when no shard can
+    admit, deterministically in arrival order.  With homogeneous hints every
+    pack cost is 0 and routing is plain least-loaded.  Requests never
+    migrate.  A stream's tokens depend only on its seed and its shard's model
+    calls, so for the same arrival order the sharded engine emits the
+    unsharded engine's tokens as long as the model's logits do not change
+    with the batch (tests/test_torch_sharding.py, CPU, float32).
+
+    ``n_slots`` that does not divide ``data_shards`` is padded up
+    (``pad_slots``); a total ``pool_blocks`` is split evenly (ceil) so every
+    shard's arena gates its own admissions.
+
+    Placement: every shard lives on the weights' device, so the tree
+    strategy commits every verified shard in ONE grouped commit call
+    (``_commit_shards``).  Shards on other cards than the weights (one copy
+    of the weights and one stream of launches per card) are ROADMAP queue 1
+    item 8b.  The JAX engine's ``jit_compile_count`` has no meaning in eager
+    torch and is left out.
+    """
+
+    def __init__(self, target_cfg, target_params, draft_cfg, draft_params,
+                 ecfg: EngineConfig, sampling: SamplingParams | None = None,
+                 selector=None, n_slots: int = 4, data_shards: int = 2,
+                 paged: bool = True, block_size: int = 64,
+                 pool_blocks: int | None = None, pipeline: bool = True,
+                 ragged=True):
+        if data_shards < 1:
+            raise ValueError(f"need at least one shard, got {data_shards}")
+        self.data_shards = data_shards
+        self.n_slots = pad_slots(n_slots, data_shards)
+        per_slots = self.n_slots // data_shards
+        per_blocks = -(-pool_blocks // data_shards) if paged and pool_blocks is not None else None
+        self.shards = [
+            BatchedSpeculativeEngine(target_cfg, target_params, draft_cfg, draft_params, ecfg, sampling,
+                                     selector=selector, n_slots=per_slots, paged=paged, block_size=block_size,
+                                     pool_blocks=per_blocks, pipeline=pipeline,
+                                     mesh=target_params["embed"].device, shard_id=i, ragged=ragged)
+            for i in range(data_shards)
+        ]
+        s0 = self.shards[0]
+        self.paged, self.strategy, self.pipeline = s0.paged, s0.strategy, pipeline
+        self.ecfg = ecfg
+        if s0.paged:
+            self.block_size = s0.block_size
+            self.pool_blocks = s0.pool_blocks * data_shards
+        self.finished: dict[int, dict] = {}
+        self._next_rid = 0
+        self._local: dict[int, tuple[int, int]] = {}   # global rid -> (shard, local rid)
+        self._global: dict[tuple[int, int], int] = {}  # (shard, local rid) -> global rid
+        # bin-packing state: global rid -> (shard, expected Tpad) of every live
+        # routed request, pruned against _local at submit()
+        self._resident: dict[int, tuple[int, int]] = {}
+        # engine-level commit counters: a grouped commit belongs to no single
+        # shard (the counters property adds them to the shards' sums)
+        self._counters = {"commit_calls": 0, "commit_ms": 0.0}
+
+    # --------------------------------------------------------- scheduling ---
+
+    @staticmethod
+    def _action_tpad(action) -> int:
+        """The speculation bucket (Tpad) a lone stream with this (K, L1, L2)
+        action occupies: the bin-packing coordinate, by the engines' own
+        bucketing rule."""
+        return BatchedSpeculativeEngine._bucket_actions({0: tuple(action)})[3]
+
+    def _pack_cost(self, si: int, tpad: int) -> int:
+        """Padding lanes per iteration that joining shard ``si``'s routed
+        streams would add: a shard steps at the max of its residents'
+        buckets, so joining costs this stream (new_max - tpad) lanes and each
+        resident any growth of that max.  0 for an empty shard and whenever
+        the buckets match."""
+        res = [t for s, t in self._resident.values() if s == si]
+        if not res:
+            return 0
+        cur = max(res)
+        new = max(cur, tpad)
+        return (new - tpad) + len(res) * (new - cur)
+
+    def _route(self, prompt_len: int, tpad: int) -> int:
+        """The shard that can admit now at the least bin-packing cost; load
+        (resident + queued, then the lowest shard id) breaks ties, and picks
+        among all shards when none can admit (the request queues there)."""
+        admitting = [i for i, sh in enumerate(self.shards) if sh.can_admit(prompt_len)]
+        pool = admitting or range(self.data_shards)
+        return min(pool, key=lambda i: (self._pack_cost(i, tpad),
+                                        len(self.shards[i].streams) + len(self.shards[i].queue), i))
+
+    def shard_of(self, rid: int) -> int:
+        """The shard a live (unfinished) request was routed to."""
+        return self._local[rid][0]
+
+    def submit(self, prompt: list[int], max_new: int = 64, seed: int | None = None, action_hint=None) -> int:
+        """Route to a shard, bin-packing on ``action_hint`` (the request's
+        expected (K, L1, L2) action; by default the engine config's, under
+        which routing is least-loaded), and queue it there.  Hints steer
+        placement only: the selector still decides every step's action."""
+        self._resident = {r: v for r, v in self._resident.items() if r in self._local}
+        hint = tuple(action_hint) if action_hint is not None else (self.ecfg.K, self.ecfg.L1, self.ecfg.L2)
+        tpad = self._action_tpad(hint)
+        si = self._route(len(prompt), tpad)
+        lrid = self.shards[si].submit(prompt, max_new=max_new, seed=seed)
+        rid = self._next_rid
+        self._next_rid += 1
+        self._local[rid] = (si, lrid)
+        self._global[(si, lrid)] = rid
+        self._resident[rid] = (si, tpad)
+        return rid
+
+    def _collect(self, si: int, events: list[dict]) -> list[dict]:
+        """Rewrite a shard's events and finished payloads to global rids."""
+        out = []
+        for ev in events:
+            ev = dict(ev)
+            ev["rid"] = self._global[(si, ev["rid"])]
+            out.append(ev)
+        sh = self.shards[si]
+        while sh.finished:
+            lrid, info = sh.finished.popitem()
+            rid = self._global.pop((si, lrid))
+            del self._local[rid]
+            self.finished[rid] = info
+        return out
+
+    # --------------------------------------------------------------- steps ---
+
+    def _finish_order(self, sis: list[int]) -> list[int]:
+        """The order the shards' begun steps are verified in.  Verification
+        touches shard-local state only, so any permutation gives the same
+        tokens (tests/test_torch_sharding.py shuffles it)."""
+        return list(sis)
+
+    def step(self) -> list[dict]:
+        """Advance every shard one speculative block: every shard's step is
+        begun (dispatched) before any shard's verification waits on the
+        device, then the verified shards commit together
+        (``_commit_shards``) and retire in shard order; the retire phase
+        begins each shard's next step when pipelining."""
+        events = []
+        pendings: list = []
+        for si, sh in enumerate(self.shards):
+            drained, sh._drained_events = sh._drained_events, []
+            events.extend(self._collect(si, drained))
+            pending, sh._pending_next = sh._pending_next, None
+            if pending is None:
+                pending = sh.begin_step()
+            pendings.append(pending)
+        live = [si for si, p in enumerate(pendings) if p is not None]
+        verified = {si: self.shards[si].verify_step(pendings[si]) for si in self._finish_order(live)}
+        self._commit_shards(verified)
+        for si in sorted(verified):
+            events.extend(self._collect(si, self.shards[si].retire_step(verified[si])))
+        # a shard whose boundary came up empty may still have evicted a stream
+        for si in range(self.data_shards):
+            if si not in verified:
+                events.extend(self._collect(si, []))
+        return events
+
+    def _commit_shards(self, verified: dict[int, VerifiedStep]) -> None:
+        """Commit every verified shard's accepted paths.  Two or more
+        tree-strategy shards commit in ONE grouped call, counted by this
+        engine (``_commit_trees``: one ``commit_kv`` launch a shard); a lone
+        shard and the replay strategy (whose commit re-advances the snapshot
+        on the host's schedule) commit shard by shard."""
+        group = sorted(verified)
+        if self.strategy != "tree" or len(group) <= 1:
+            for si in group:
+                self.shards[si].commit_step(verified[si])
+            return
+        _commit_trees([self.shards[si] for si in group], [verified[si] for si in group], self._counters)
+
+    def drain_pipeline(self) -> list[dict]:
+        """Finish every shard's begun-ahead step without beginning another."""
+        events = []
+        for si, sh in enumerate(self.shards):
+            events.extend(self._collect(si, sh.drain_pipeline()))
+        return events
+
+    def abort_pipeline(self) -> int:
+        """Rewind EVERY shard's begun-ahead step (each restores its own rng
+        snapshots and pool state); returns how many shards rewound one.  All
+        must land, or the next boundary would replay some shards' randomness
+        against others' consumed state."""
+        return sum(sh.abort_pipeline() for sh in self.shards)
+
+    def run(self) -> dict[int, dict]:
+        """Step until every submitted request finished; returns
+        ``{rid: {"tokens", "reason"}}`` (global rids) for the requests this
+        call completed."""
+        done: dict[int, dict] = {}
+
+        def drain():
+            while self.finished:
+                rid, info = self.finished.popitem()
+                done[rid] = info
+
+        drain()
+        while any(sh.queue or sh.streams for sh in self.shards):
+            before = len(done)
+            self.step()
+            drain()
+            if not any(sh.queue or sh.streams for sh in self.shards):
+                break
+            if not (any(sh.streams for sh in self.shards) or len(done) > before):
+                raise RuntimeError("sharded scheduler stalled")
+        return done
+
+    def generate_batch(self, prompts, max_new: int = 32, seeds=None) -> list[list[int]]:
+        """Submit all prompts, drain, return outputs in order."""
+        rids = [self.submit(list(p), max_new, None if seeds is None else seeds[i]) for i, p in enumerate(prompts)]
+        out = self.run()
+        return [out[r]["tokens"] for r in rids]
+
+    # ------------------------------------------------------------ counters ---
+
+    @property
+    def counters(self) -> dict:
+        """The shards' counters summed, plus the engine-level grouped-commit
+        counters.  A read-only view: mutate through ``reset_counters`` or the
+        shards' own dicts."""
+        out: dict = {}
+        for sh in self.shards:
+            for key, val in sh.counters.items():
+                out[key] = out.get(key, type(val)()) + val
+        for key, val in self._counters.items():
+            out[key] = out.get(key, type(val)()) + val
+        return out
+
+    @property
+    def grouped_commits(self) -> int:
+        """The grouped commit calls (each launched ``commit_kv`` once a shard);
+        ``counters["commit_calls"]`` counts them beside the shards' own."""
+        return self._counters["commit_calls"]
+
+    def reset_counters(self, keys) -> None:
+        for sh in self.shards:
+            for key in keys:
+                sh.counters[key] = type(sh.counters[key])()
+        for key in keys:
+            if key in self._counters:
+                self._counters[key] = type(self._counters[key])()
+
+    @property
+    def profile_commits(self) -> bool:
+        return self.shards[0].profile_commits
+
+    @profile_commits.setter
+    def profile_commits(self, value: bool) -> None:
+        for sh in self.shards:
+            sh.profile_commits = value
+
+    @property
+    def queue(self) -> list:
+        """Every shard's queued requests (routing already fixed their shard)."""
+        return [req for sh in self.shards for req in sh.queue]
+
+    @property
+    def streams(self) -> dict:
+        """(shard, slot) -> stream state over every shard."""
+        return {(si, s): st for si, sh in enumerate(self.shards) for s, st in sh.streams.items()}
+
+    def pool_occupancy(self) -> dict:
+        """Arena occupancy in the unsharded schema, plus ``per_shard``."""
+        per = [sh.pool_occupancy() for sh in self.shards]
+        out: dict = {}
+        for name in ("target", "draft"):
+            shards = [p[name] for p in per if name in p]
+            if not shards:
+                continue
+            used = sum(s["blocks_used"] for s in shards)
+            out[name] = {
+                "blocks_total": sum(s["blocks_total"] for s in shards),
+                "blocks_used": used,
+                "blocks_free": sum(s["blocks_free"] for s in shards),
+                "block_size": shards[0]["block_size"],
+                "fragmentation": (sum(s["fragmentation"] * s["blocks_used"] for s in shards) / used)
+                if used else 0.0,
+            }
+        if out:
+            out["per_shard"] = per
+        return out

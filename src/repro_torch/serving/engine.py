@@ -19,8 +19,9 @@ emit the same tokens from the same weights and seed
 
 Model calls run on the device the weights lie on; warped distributions come
 back to the host as float32 numpy, and verification runs on the host
-through the core/verify.py registry.  On-device verification is not ported
-and raises.
+through the core/verify.py registry, or, under
+``EngineConfig.verify_on_device`` with a top-down OT verifier, on the
+device (core/otlp_device.py), as the JAX engine does.
 """
 from __future__ import annotations
 
@@ -29,15 +30,18 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from repro_torch.core.otlp_device import verify_topdown
 from repro_torch.core.traversal import delayed_structure
 from repro_torch.core.trees import DraftTree, tree_ancestor_mask
-from repro_torch.core.verify import get_verifier
+from repro_torch.core.verify import VERIFIERS, get_verifier
 from repro_torch.models.cache import clone_cache, fork_streams
 from repro_torch.models.transformer import RECURRENT, forward, init_cache
 from repro_torch.sampling import warp_logits
 from repro_torch.serving.serve_step import make_pool_commit_step, next_pow2
 
 VERIFIER_DTYPE = np.float64
+# the verifiers with an on-device solve (core/otlp_device.py): the top-down OT family
+TOPDOWN = frozenset(n for n, s in VERIFIERS.items() if s.on_device)
 
 
 def to_verifier_dtype(p: np.ndarray) -> np.ndarray:
@@ -76,7 +80,8 @@ class EngineConfig:
     L2: int = 2
     max_cache: int = 512
     seed: int = 0
-    # on-device OT verification (the JAX package's core/otlp_jax.py path)
+    # top-down OT verifiers verify on the device (core/otlp_device.py);
+    # the others stay on the host
     verify_on_device: bool = False
 
 
@@ -89,8 +94,6 @@ class SpeculativeEngine:
                  sampling: SamplingParams | None = None, selector=None):
         assert target_cfg.vocab == draft_cfg.vocab
         get_verifier(ecfg.verifier)  # fail loudly on unknown names, at build time
-        if ecfg.verify_on_device:
-            raise NotImplementedError("on-device verification is not ported: ROADMAP queue 1 item 11")
         self.tc, self.tp = target_cfg, target_params
         self.dc, self.dp = draft_cfg, draft_params
         self.device = target_params["embed"].device
@@ -232,7 +235,26 @@ class SpeculativeEngine:
     # -------------------------------------------------------------- verify ---
 
     def _verify(self, tree: DraftTree):
+        if self.ecfg.verify_on_device and self.ecfg.verifier in TOPDOWN:
+            return self._verify_device(tree, self.ecfg.verifier)
         return verify_tree(tree, self.ecfg.verifier, self.rng)
+
+    def _verify_device(self, tree: DraftTree, solver: str):
+        """Whole-tree verification on the engine's device
+        (core/otlp_device.verify_topdown).  One draw of the host rng seeds
+        the device generator, as the JAX engine draws its key, so the host
+        rng stays in step with JAX's; the results come back in one copy."""
+        max_depth = int(tree.max_depth()) + 1
+        gen = torch.Generator(device=self.device).manual_seed(int(self.rng.integers(2**31)))
+
+        def up(a, dtype):
+            return torch.as_tensor(np.asarray(a, dtype), device=self.device)
+
+        out_tok, n_acc, corr = verify_topdown(
+            up(tree.tokens, np.int64), up(tree.parent, np.int64), up(tree.p, np.float32),
+            up(tree.q, np.float32), gen, solver=solver, max_depth=max_depth, max_children=max(self.ecfg.K, 1))
+        res = torch.cat([out_tok, n_acc[None], corr[None]]).tolist()
+        return res[:res[max_depth]], res[max_depth + 1]
 
     @staticmethod
     def _accepted_nodes(tree: DraftTree, accepted: list[int]) -> list[int]:

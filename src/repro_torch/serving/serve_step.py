@@ -4,7 +4,8 @@ ring-compaction commit.
 The counterpart of the pool steps of src/repro/serving/serve_step.py
 (``StagingBuffers``, ``make_pool_decode_step``, ``make_pool_locked_step``,
 ``device_ancestor_mask``, ``make_pool_tree_step``,
-``make_pool_ragged_tree_step``, ``make_pool_commit_step``, ``next_pow2``).
+``make_pool_ragged_tree_step``, ``make_pool_commit_step``,
+``make_group_commit_step``, ``next_pow2``).
 The steps are plain functions (PyTorch runs eagerly; nothing is jitted or
 donated).  Per-step host-to-device traffic is small index arrays: ancestor
 masks are composed on the device from parent pointers, and the commit is
@@ -232,3 +233,29 @@ def make_pool_commit_step(Tpad: int):
         return {**cache, "attn": new_attn}
 
     return commit
+
+
+def make_group_commit_step(tpads: list[int]):
+    """Grouped cross-shard commit: the shards' post-verification commits as
+    ONE engine-level call.
+
+    Builds one ``make_pool_commit_step(T)`` per shard (each with its own
+    Tpad: shards bucket their speculation shapes independently) and applies
+    them over tuples in shard order.  Returned fn: (caches, node_paths,
+    path_lens, Cs, actives) -> caches, every argument a tuple in shard
+    order with the per-shard contract of ``make_pool_commit_step``.
+
+    The JAX version jits the group into one fused program that updates every
+    shard's pool in place.  Each shard's pool here is its own tensors, so
+    the group launches ``commit_kv`` once per shard: one engine-level commit
+    call, as many kernel launches as shards.  The batched engines commit
+    through it, a lone engine as a group of one."""
+    fns = [make_pool_commit_step(T) for T in tpads]
+
+    def group_commit(caches, node_paths, path_lens, Cs, actives):
+        if len(caches) != len(fns):
+            raise ValueError(f"{len(caches)} shard pools for a group of {len(fns)}")
+        return tuple(fn(cache, npath, plen, C, act)
+                     for fn, cache, npath, plen, C, act in zip(fns, caches, node_paths, path_lens, Cs, actives))
+
+    return group_commit

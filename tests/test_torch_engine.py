@@ -100,8 +100,9 @@ def test_dense_config_smokes_token_identity(arch):
 
 def test_engine_refuses_what_is_not_ported(models):
     _, (tt, ttp, td, tdp) = models
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-        teng.SpeculativeEngine(tt, ttp, td, tdp, teng.EngineConfig(verify_on_device=True))
+    # on-device verification is ported (tests/test_torch_otlp_device.py): it builds
+    eng = teng.SpeculativeEngine(tt, ttp, td, tdp, teng.EngineConfig(verify_on_device=True))
+    assert eng.ecfg.verify_on_device and eng.ecfg.verifier in teng.TOPDOWN
     with pytest.raises(NotImplementedError, match="queue 1 item 10"):
         teng.SpeculativeEngine(tt.replace(arch_type="encdec"), ttp, td, tdp, teng.EngineConfig()).new_stream([1, 2])
 
@@ -166,8 +167,10 @@ def test_cli_streams_serves_end_to_end(capsys):
     out = capsys.readouterr().out
     assert all(f"req{r}: [" in out for r in range(3))
     assert "[batched x2]" in out and "paged(block=64" in out and "pipelined(" in out
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        tserve.main(["--arch", "granite-8b", "--smoke", "--device", "cpu", "--streams", "2", "--data-shards", "2"])
+    # --data-shards is ported (tests/test_torch_sharding.py): it serves
+    tserve.main(["--arch", "granite-8b", "--smoke", "--device", "cpu", "--streams", "2", "--data-shards", "2",
+                 "--requests", "2", "--max-new", "4"])
+    assert "shards=2(x1 slots" in capsys.readouterr().out
 
 
 def test_cli_cpu_smoke_runs_end_to_end(capsys):
