@@ -41,7 +41,11 @@
    batched branch replay's 16 forked rows, and 8 paged rows (the 8-token
    admission prefill, short rows and rows past the window); the draft's
    D 128 instance at the same heads (G 10) in its forked branch step and
-   its 2600-token prefill; SDPA or gather+SDPA beside each.
+   its 2600-token prefill; SDPA or gather+SDPA beside each.  Phase 9's
+   shapes too (FAMILY_CASES): whisper-medium's tree pass (16/16 heads of
+   64, G 1), internvl2-26b's (48/8 heads of 128, G 6: 126 score rows a
+   tile, the last m16 tile part filled) and its 263-row prefill of 256
+   patches + 7 tokens (13 query tiles).
 3. The main path at full width: granite-8b (36 layers, bf16) with its
    make_draft_cfg draft, random weights drawn on the card from seeded
    generators, served by SpeculativeEngine with specinfer at
@@ -118,7 +122,24 @@
    target layers and a 1-layer draft in float32: how many of 3 streams the
    batched engine serves as the single-stream one does, and of 12 the
    sharded as the unsharded (reported).
-9. Prints the kernels' JSON line, then the card's line, then as the last
+9. The encoder-decoder and VLM families, each at full width with nothing
+   cut and its make_draft_cfg draft, bf16, one stream, after every
+   earlier model is freed: (a) whisper-medium (24 + 24 layers, d 1024,
+   16/16 heads of 64, enc_len 1500, vocab 51865; draft 6 + 6 layers at d
+   512), each request given seeded frame embeddings (1, 1500, 1024); (b)
+   internvl2-26b (48 layers, d 6144, 48/8 heads of 128, d_ff 16384, vocab
+   92553; draft 12 layers at d 3072, 24/4 heads), each request given 256
+   seeded patch embeddings (1, 256, 6144).  Each: phase 3's traffic
+   (specinfer on 2 requests, traversal on 1, 8-token prompts, 32 new
+   tokens, a 1024-slot ring), launch counts exact (the draft never sees
+   the frames or patches, as in JAX), the prefill's wall, peak memory
+   (under 80 GB), a profile of one request with the device time of what
+   runs outside any kernel (the plain encoder layers and cross-attention
+   cores, as in JAX).  (c) The whisper draft at full width given frames of
+   its own width (1, 1500, 512), and the internvl2 draft cut to 2 layers
+   given its patches, float32, the card against the CPU (the logits and
+   the cached cross K/V within 1e-3 of their scale; launches exact).
+10. Prints the kernels' JSON line, then the card's line, then as the last
    line {"ok": true, "device": {...}}.  With ``--json-dir DIR`` it also
    writes the per-shape kernel table and a summary there as JSON.
 
@@ -128,6 +149,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import json
 import statistics
 import subprocess
@@ -414,6 +436,7 @@ def phase_kernels(torch):
             _log_control(control, dname)
         rows += paged_kernel_rows(torch, dtype, gen, timer)
         rows += hybrid_kernel_rows(torch, dtype, gen, timer)
+        rows += family_kernel_rows(torch, dtype, gen, timer)
         rows += decode_kernel_rows(torch, dtype, gen, timer)
     rows += decode_alone_rows(torch, gen, timer)
     return rows
@@ -887,6 +910,81 @@ def hybrid_kernel_rows(torch, dtype, gen, timer):
     return rows
 
 
+# phase 9's tree-kernel shapes on the 1024-slot ring: whisper-medium's (2, 2, 2) tree pass (16/16
+# heads of 64, G 1: 32 score rows a tile, 4 teams), internvl2-26b's (48/8 heads of 128, G 6: gh 6 x
+# tq 21 = 126 score rows, the last m16 tile part filled) and its prefill of 256 patches + 7 tokens
+# (13 query tiles); (case, H, Hkv, D, T, committed tokens before the pass)
+FAMILY_CASES = [("whisper-medium tree pass, 1024-slot ring", 16, 16, 64, 7, 40),
+                ("internvl2-26b tree pass, 1024-slot ring", 48, 8, 128, 7, 300),
+                ("internvl2-26b prefill, 256 patches + 7 tokens", 48, 8, 128, 263, 0)]
+
+
+def _family_case_inputs(torch, H, Hkv, D, T, C, dtype, gen):
+    """q, a 1024-slot ring (B 1) holding the C committed tokens and the T
+    new ones, and the mask the engine gives the pass, made by the port's own
+    cache functions: the (2, 2, 2) tree's after C tokens (T 7), or the
+    causal prefill's (C 0)."""
+    import numpy as np
+
+    from repro_torch.core.trees import tree_ancestor_mask
+    from repro_torch.models.cache import attn_mask_from_pos, cache_slots, tree_mask_from_pos
+
+    S, dev = 1024, "cuda"
+    pos = torch.full((S,), -1, dtype=torch.int32, device=dev)
+    pos[:C + T] = torch.arange(C + T, dtype=torch.int32, device=dev)
+    if C == 0:
+        mask = attn_mask_from_pos(pos, torch.arange(T, dtype=torch.int32, device=dev))[:, 0]
+    else:
+        anc = torch.as_tensor(tree_ancestor_mask(np.asarray([-1, 0, 1, 2, 2, 3, 4])), device=dev)
+        depth = anc.sum(dim=-1).to(torch.int32) - 1
+        slots = cache_slots(torch.tensor(C, dtype=torch.int32, device=dev), T, S)
+        pos[slots.long()] = C + depth
+        mask = tree_mask_from_pos(pos, C + depth, anc[None], slots)[:, 0]
+    k = torch.zeros(1, S, Hkv, D, device=dev)
+    v = torch.zeros(1, S, Hkv, D, device=dev)
+    k[:, :C + T] = torch.randn(1, C + T, Hkv, D, generator=gen, device=dev)
+    v[:, :C + T] = torch.randn(1, C + T, Hkv, D, generator=gen, device=dev)
+    q = torch.randn(1, T, H, D, generator=gen, device=dev)
+    return q.to(dtype), k.to(dtype), v.to(dtype), mask.contiguous()
+
+
+def family_kernel_rows(torch, dtype, gen, timer):
+    """Kernel 1 at phase 9's heads (FAMILY_CASES) against its plain version
+    (TREE_TOLERANCE_RULE), with its time, bound and SDPA's."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.ref import tree_attention_ref
+    from repro_torch.kernels.tree_attention import launch_schedule, tree_attention
+
+    dname = str(dtype).replace("torch.", "")
+    rows = []
+    for case, H, Hkv, D, T, C in FAMILY_CASES:
+        q, k, v, mask = _family_case_inputs(torch, H, Hkv, D, T, C, dtype, gen)
+        out = tree_attention(q, k, v, mask)
+        torch.cuda.synchronize()
+        err, rel = _check_tree(torch, "tree_attention", case, dname, out, tree_attention_ref(q, k, v, mask))
+        qs, ks, vs = (t.transpose(1, 2) for t in (q, k, v))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask[:, None], enable_gqa=True)
+
+        ms = timer(lambda: tree_attention(q, k, v, mask))
+        plain_ms = timer(lambda: tree_attention_ref(q, k, v, mask))
+        library_ms = timer(sdpa)
+        bound_ms, bound_by = attention_bound(q, k, v, mask)
+        tq, gh, _, _ = launch_schedule(H, Hkv, k.shape[1], D)
+        shape = {"B": 1, "T": T, "H": H, "Hkv": Hkv, "S": k.shape[1], "D": D, "Bm": 1, "tq": tq, "gh": gh,
+                 "query_tiles": -(-T // tq)}
+        rows.append({"kernel": "tree_attention", "case": case, "dtype": dname, "shape": shape, "max_abs_err": err,
+                     "max_rel_err": rel, "tolerance": TOLERANCE[dname], "tolerance_rule": TREE_TOLERANCE_RULE,
+                     "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by})
+        log(f"  tree_attention {case:46s} {dname:8s} err {err:.3e} rel {rel:.3e}  kernel {ms:.4f} ms  plain "
+            f"{plain_ms:.4f} ms  sdpa {library_ms:.4f} ms  bound {bound_ms:.5f} ms ({bound_by})  gh {gh} x tq {tq}")
+        del q, k, v, mask
+    return rows
+
+
 # ---------------------------------------------------- the flash-decode kernels ---
 
 DECODE_S = 32768  # decode_32k's cache (src/repro/launch/shapes.py:25)
@@ -1072,19 +1170,20 @@ def decode_alone_rows(torch, gen, timer):
              "library_ms": library_ms, "composed_ms": None, "bound_ms": bound[0], "bound_by": bound[1]}]
 
 
-def _run_engine(torch, eng, prompts, max_new, n_layers, actions=None):
+def _run_engine(torch, eng, prompts, max_new, n_layers, actions=None, gen_kw=None):
     """Serve the prompts with the launch count set to 0 just before and
     read just after; check it equals masked passes x layers (prefills,
     draft and target passes, peeks).  ``actions``: the ActionLog of the
     engine's selector, whose deepest tree bounds the block efficiency (else
-    the engine's static action does)."""
+    the engine's static action does).  ``gen_kw``: each request's
+    ``generate`` keywords (phase 9's frames or patches)."""
     from repro_torch.kernels.tree_attention import tree_attention
 
     vocab = eng.tc.vocab
     torch.cuda.synchronize()
     tree_attention.launches = 0
     t0 = time.perf_counter()
-    outs = [eng.generate(p, max_new=max_new) for p in prompts]
+    outs = [eng.generate(p, max_new=max_new, **(gen_kw or {})) for p in prompts]
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = tree_attention.launches
@@ -1131,10 +1230,15 @@ def _kernel_times(by_name, wrapper_launches):
     return out
 
 
-def _profile(torch, eng, prompt):
+def _profile(torch, eng, prompt, gen_kw=None, labels=()):
     """Where the time goes in one request of 16 tokens: device time by
     kernel from torch.profiler (CUPTI), and the device's busy share of the
-    profiled wall time (the profiler's own host cost inflates that wall)."""
+    profiled wall time (the profiler's own host cost inflates that wall).
+    ``gen_kw``: ``generate``'s keywords; ``labels``: record_function
+    ranges whose kernels' device time (theirs and their children's) is
+    reported as ``ranges_ms``.  A range's own device span (the profiler's
+    annotation of it on the card, idle gaps included) is no kernel: it is
+    left out of both."""
     from torch.profiler import ProfilerActivity, profile
 
     counters = _launch_counters()
@@ -1143,13 +1247,13 @@ def _profile(torch, eng, prompt):
         fn.launches = 0
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng.generate(prompt, max_new=16)
+        eng.generate(prompt, max_new=16, **(gen_kw or {}))
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     wrapper_launches = {name: fn.launches for name, fn in counters.items()}
     by_name: dict[str, float] = {}
     for evt in prof.events():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
+        if evt.device_type == torch.autograd.DeviceType.CUDA and evt.name not in labels:
             by_name[evt.name] = by_name.get(evt.name, 0.0) + evt.time_range.elapsed_us() / 1e3
     busy_ms = sum(by_name.values())
     steps = eng.counters["blocks"]
@@ -1170,9 +1274,15 @@ def _profile(torch, eng, prompt):
     host = sorted(ops, key=lambda r: -r[1])[:8]
     for name, t, n in host:
         log(f"    host self {t:9.3f} ms  x{n:<6d} {name[:80]}")
+    def kernels_us(evt):
+        return sum(k.duration for k in evt.kernels if k.name not in labels) + sum(
+            kernels_us(c) for c in evt.cpu_children)
+
+    ranges = {label: sum(kernels_us(e) for e in prof.events() if e.name == label
+                         and e.device_type == torch.autograd.DeviceType.CPU) / 1e3 for label in labels}
     return {"steps": steps, "wall_ms": wall_ms, "device_busy_ms": busy_ms, "tree_attention_ms": attn_ms,
             "launches": launches, "kernel_ms": mine, "torch_host_ms": torch_host_ms, "top_kernels_ms": top,
-            "top_host_self_ms": host}
+            "top_host_self_ms": host, "ranges_ms": ranges}
 
 
 def phase_main_path(torch):
@@ -1230,9 +1340,11 @@ def phase_main_path(torch):
     return results, total_launches
 
 
-def phase_reference(torch, cfg, seed, title="phase 3b: full-width draft"):
+def phase_reference(torch, cfg, seed, title="phase 3b: full-width draft", prefill_kw=None):
     """A full-width model ``cfg`` in float32: the card (kernel) against the
-    CPU (plain versions), prefill then a (2, 2, 2) tree pass, same weights."""
+    CPU (plain versions), prefill then a (2, 2, 2) tree pass, same weights.
+    ``prefill_kw``: the prefill's frames or patches (card tensors); an
+    encdec model's cached cross K/V are held with the logits."""
     log(f"== {title} on the card against the CPU, float32")
     import numpy as np
 
@@ -1250,20 +1362,26 @@ def phase_reference(torch, cfg, seed, title="phase 3b: full-width draft"):
     tree_tokens = rng.integers(0, cfg.vocab, size=(1, 7))
     anc = tree_ancestor_mask(np.asarray([-1, 0, 1, 2, 2, 3, 4]))[None]
     worst = 0.0
-    caches = {d: init_cache(cfg, 1, 1024, d) for d in ("cuda", "cpu")}
+    sides = {"card": ("cuda", params), "cpu": ("cpu", cpu_params)}
+    caches = {side: init_cache(cfg, 1, 1024, dev) for side, (dev, _) in sides.items()}
+    cross = "cross_k" in caches["cpu"]
     for mode, toks in (("full", prompt), ("tree", tree_tokens)):
         logits = {}
-        for dev, p in (("cuda", params), ("cpu", cpu_params)):
-            lg, caches[dev], _ = forward(p, cfg, torch.as_tensor(toks, device=dev), mode=mode,
-                                         cache=caches[dev], anc=torch.as_tensor(anc, device=dev)
-                                         if mode == "tree" else None)
-            logits[dev] = lg.cpu()
-        scale = max(1.0, logits["cpu"].abs().max().item())
-        rel = (logits["cuda"] - logits["cpu"]).abs().max().item() / scale
+        for side, (dev, p) in sides.items():
+            kw = {k: t.to(dev) for k, t in (prefill_kw or {}).items()} if mode == "full" else {}
+            lg, caches[side], _ = forward(p, cfg, torch.as_tensor(toks, device=dev), mode=mode,
+                                          cache=caches[side], anc=torch.as_tensor(anc, device=dev)
+                                          if mode == "tree" else None, **kw)
+            logits[side] = lg.cpu()
+        pairs = [(logits["card"], logits["cpu"])]
+        if cross:
+            pairs += [(caches["card"][leaf].cpu(), caches["cpu"][leaf]) for leaf in ("cross_k", "cross_v")]
+        rel = max((a - b).abs().max().item() / max(1.0, b.abs().max().item()) for a, b in pairs)
         worst = max(worst, rel)
-        log(f"  {mode}: max |logits card - logits cpu| / max(1, max |logits|) = {rel:.3e}")
-        if not torch.isfinite(logits["cuda"]).all() or rel > 1e-3:
-            raise RuntimeError(f"full-width draft on the card disagrees with the CPU in {mode} mode: {rel}")
+        log(f"  {mode}: max |card - cpu| / max(1, max |cpu|) over the logits{' and the cross K/V' if cross else ''}"
+            f" = {rel:.3e}")
+        if not torch.isfinite(logits["card"]).all() or rel > 1e-3:
+            raise RuntimeError(f"{cfg.name} on the card disagrees with the CPU in {mode} mode: {rel}")
     return worst
 
 
@@ -2331,7 +2449,7 @@ def _profile_device_verify(torch, eng, prompt):
         raise RuntimeError("no device kernel ran inside the verifier: it did not verify on the card")
     busy = sum(e.time_range.elapsed_us() for e in device) / 1e3
     step_busy = sum(e.time_range.elapsed_us() for e in events
-                    if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+                    if e.device_type == torch.autograd.DeviceType.CUDA and e.name != "verify_on_device") / 1e3
     host_ms = (r1 - r0) / 1e3
     log(f"  profile of one step: wall {wall_ms:.2f} ms, device busy {step_busy:.2f} ms; the verifier: "
         f"{len(kernels)} kernels + {len(device) - len(kernels)} copies, device busy {busy:.3f} ms, host span "
@@ -2510,6 +2628,188 @@ def phase_float32_match(torch):
     return results, [res_u["launches"], res_s["launches"]], single_launches
 
 
+# ------------------------------------------------ phase 9: encoder-decoder, VLM ---
+
+FAMILY_ARCHES = ("whisper-medium", "internvl2-26b")
+# profiler ranges around what the two families run outside any kernel (the plain gqa_attend, as in
+# JAX): the Whisper encoder's layers, and each decoder layer's cross-attention core
+ENCODER_RANGE, CROSS_RANGE = "plain encoder layer", "plain cross-attention"
+CARD_BYTES = 80e9
+
+
+def _modality(torch, cfg, seed):
+    """A request's seeded modality input on the card, in ``cfg``'s dtype:
+    Whisper's frame embeddings (1, enc_len, d) as ``enc_embeds``, InternVL's
+    patch embeddings (1, n_patches, d) as ``embeds``."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    if cfg.arch_type == "encdec":
+        return {"enc_embeds": torch.randn(1, cfg.enc_len, cfg.d_model, generator=gen, device="cuda").to(cfg.tdtype)}
+    return {"embeds": torch.randn(1, cfg.n_patches, cfg.d_model, generator=gen, device="cuda").to(cfg.tdtype)}
+
+
+@contextlib.contextmanager
+def _plain_attention_ranges(torch):
+    """Label, for the profiler, the encoder's layers (the blocks called
+    without a mask) and every cross-attention core (``gqa_attend`` outside
+    the encoder) by patching models/transformer.py's names meanwhile.
+    Yields the count of labelled calls by range, for the caller to hold."""
+    from torch.profiler import record_function
+
+    from repro_torch.models import transformer
+
+    block, attend = transformer._attn_mlp_block, transformer.gqa_attend
+    in_encoder = [False]
+    calls = {ENCODER_RANGE: 0, CROSS_RANGE: 0}
+
+    def labelled_block(p, cfg, x, positions, mask, *args, **kw):
+        if mask is not None:
+            return block(p, cfg, x, positions, mask, *args, **kw)
+        in_encoder[0] = True
+        calls[ENCODER_RANGE] += 1
+        try:
+            with record_function(ENCODER_RANGE):
+                return block(p, cfg, x, positions, mask, *args, **kw)
+        finally:
+            in_encoder[0] = False
+
+    def labelled_attend(q, k, v, mask):
+        if in_encoder[0]:
+            return attend(q, k, v, mask)
+        calls[CROSS_RANGE] += 1
+        with record_function(CROSS_RANGE):
+            return attend(q, k, v, mask)
+
+    transformer._attn_mlp_block, transformer.gqa_attend = labelled_block, labelled_attend
+    try:
+        yield calls
+    finally:
+        transformer._attn_mlp_block, transformer.gqa_attend = block, attend
+
+
+def phase_families(torch):
+    """9a/9b: whisper-medium and internvl2-26b at full width, nothing cut,
+    each with its make_draft_cfg draft, bf16, through SpeculativeEngine:
+    phase 3's traffic, each request given seeded frames (1, 1500, 1024) or
+    256 patches (1, 256, 6144), launch counts exact; the prefill's wall,
+    peak memory, a profile of one request.  Returns (results, launches)."""
+    import gc
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import make_draft_cfg
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving.engine import EngineConfig, SamplingParams, SpeculativeEngine
+
+    results, total_launches = {}, 0
+    for sub, arch in zip("ab", FAMILY_ARCHES):
+        t_phase = time.perf_counter()
+        tcfg = get_config(arch)
+        dcfg = make_draft_cfg(tcfg)
+        log(f"== phase 9{sub}: {arch} at full width, nothing cut, + draft, bf16, one stream")
+        for role, cfg in (("target", tcfg), ("draft ", dcfg)):
+            extra = (f" enc_layers={cfg.n_enc_layers} enc_len={cfg.enc_len}" if cfg.arch_type == "encdec"
+                     else f" patches={cfg.n_patches}")
+            log(f"{role} {cfg.name}: L={cfg.n_layers}{extra} d={cfg.d_model} H={cfg.n_heads} Hkv={cfg.n_kv_heads} "
+                f"hd={cfg.hd} ff={cfg.d_ff} V={cfg.vocab} ({cfg.param_count() / 1e9:.2f} B params)")
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        tp = init_params(tcfg, torch.Generator(device="cuda").manual_seed(0))
+        dp = init_params(dcfg, torch.Generator(device="cuda").manual_seed(1))
+        torch.cuda.synchronize()
+        log(f"weights drawn on the card in {time.perf_counter() - t0:.2f} s")
+        layers = (tcfg.n_layers, dcfg.n_layers)
+        rng = np.random.default_rng(0)
+        prompts = [rng.integers(0, tcfg.vocab, size=8).tolist() for _ in range(3)]
+        kw = _modality(torch, tcfg, 2)
+        sampling = SamplingParams(1.0, 1.0)
+        warm = SpeculativeEngine(tcfg, tp, dcfg, dp, EngineConfig("specinfer", 2, 2, 2, 1024, seed=9), sampling)
+        warm.generate(prompts[0], max_new=8, **kw)  # cuBLAS and allocator warm-up, not measured
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            warm.new_stream(prompts[0], **kw)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        res = {"prefill_wall_s": statistics.median(walls)}
+        what = (f"encoder over {tcfg.enc_len} frames" if tcfg.arch_type == "encdec" else f"{tcfg.n_patches} patches")
+        log(f"  prefill (the target's {what} + 7 tokens, the draft's 7 tokens): median wall "
+            f"{res['prefill_wall_s'] * 1e3:.2f} ms of 3")
+        for verifier, reqs in (("specinfer", prompts[:2]), ("traversal", prompts[2:])):
+            eng = SpeculativeEngine(tcfg, tp, dcfg, dp, EngineConfig(verifier, 2, 2, 2, 1024, seed=0), sampling)
+            outs, wall, launches, be = _run_engine(torch, eng, reqs, 32, layers, gen_kw=kw)
+            total_launches += launches
+            tokens = sum(len(o) for o in outs)
+            c = eng.counters
+            for r, out in enumerate(outs):
+                log(f"  {verifier} req{r}: {out}")
+            log(f"  {verifier} (2,2,2): block_efficiency={be:.4f} blocks={c['blocks']} "
+                f"target_calls={c['target_calls']} draft_calls={c['draft_calls']} tokens={tokens} "
+                f"wall={wall:.4f} s tokens/s={tokens / wall:.3f} tree_attention launches={launches} "
+                f"(= {layers[0]} x {len(reqs) + c['target_calls']} + {layers[1]} x {len(reqs) + c['draft_calls']})")
+            res[verifier] = {"block_efficiency": be, "wall_s": wall, "tokens_per_s": tokens / wall,
+                             "launches": launches, "tokens": tokens, "steps": c["blocks"]}
+        peak = torch.cuda.max_memory_allocated()
+        log(f"  max_memory_allocated {peak / 2**30:.3f} GiB")
+        if peak >= CARD_BYTES:
+            raise RuntimeError(f"{arch}: peak memory {peak} bytes is not under {CARD_BYTES:.0f}")
+        res["max_memory_allocated"] = peak
+        eng = SpeculativeEngine(tcfg, tp, dcfg, dp, EngineConfig("specinfer", 2, 2, 2, 1024, seed=1), sampling)
+        with _plain_attention_ranges(torch) as calls:
+            res["profile"] = _profile(torch, eng, prompts[0], gen_kw=kw, labels=(ENCODER_RANGE, CROSS_RANGE))
+        ranges = res["profile"]["ranges_ms"]
+        log(f"  profile: plain encoder layers {ranges[ENCODER_RANGE]:.3f} ms in {calls[ENCODER_RANGE]} calls, "
+            f"plain cross-attention cores {ranges[CROSS_RANGE]:.3f} ms in {calls[CROSS_RANGE]} calls, of device time")
+        # the encoder runs once, in the target's prefill; a cross-attention core sits in every decoder
+        # layer of every pass (the draft's too, over its zero cross cache); the VLM has neither
+        c = eng.counters
+        want = ({ENCODER_RANGE: tcfg.n_enc_layers,
+                 CROSS_RANGE: layers[0] * (1 + c["target_calls"]) + layers[1] * (1 + c["draft_calls"])}
+                if tcfg.arch_type == "encdec" else {ENCODER_RANGE: 0, CROSS_RANGE: 0})
+        for label, n in want.items():
+            if calls[label] != n or (n > 0) != (ranges[label] > 0):
+                raise RuntimeError(f"{arch}: {label} ran {calls[label]} times for {ranges[label]:.3f} ms of "
+                                   f"device time, expected {n} calls and {'some' if n else 'no'} device time")
+        del tp, dp, warm, eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        res["seconds"] = time.perf_counter() - t_phase
+        log(f"  phase 9{sub} took {res['seconds']:.1f} s")
+        results[arch] = res
+    return results, total_launches
+
+
+def phase_family_reference(torch):
+    """9c: the whisper-medium draft at full width (6 + 6 layers, d 512)
+    given frames of its own width (1, 1500, 512), and the internvl2-26b
+    draft cut to 2 layers given its 256 patches, float32, the card against
+    the CPU (phase_reference).  Returns (worst relative error, launches);
+    the launches, a prefill and a tree pass a layer, are checked."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.tree_attention import tree_attention
+    from repro_torch.launch.serve import make_draft_cfg
+
+    t_phase = time.perf_counter()
+    worst, launches = 0.0, 0
+    for arch, n_layers, seed in (("whisper-medium", None, 8), ("internvl2-26b", 2, 10)):
+        cfg = make_draft_cfg(get_config(arch)).replace(dtype="float32")
+        cut = "at full width" if n_layers is None else f"cut to {n_layers} layers"
+        cfg = cfg if n_layers is None else cfg.replace(n_layers=n_layers)
+        torch.cuda.synchronize()
+        tree_attention.launches = 0
+        worst = max(worst, phase_reference(torch, cfg, seed, f"phase 9c: the {arch} draft {cut}, with its "
+                                           f"{'frames' if cfg.arch_type == 'encdec' else 'patches'}",
+                                           _modality(torch, cfg, seed + 1)))
+        torch.cuda.synchronize()
+        if tree_attention.launches != 2 * cfg.n_layers:
+            raise RuntimeError(f"tree_attention launched {tree_attention.launches} times in 9c, expected "
+                               f"{2 * cfg.n_layers} (a prefill and a tree pass x layers)")
+        launches += tree_attention.launches
+    torch.cuda.empty_cache()
+    log(f"  phase 9c took {time.perf_counter() - t_phase:.1f} s")
+    return worst, launches
+
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -2560,16 +2860,23 @@ def main():
     phase8["e"], f32_batched_runs, f32_single_launches = phase_float32_match(torch)
     phase8["seconds"] = sum(phase8[k]["seconds"] for k in "abcde")
     log(f"  phase 8 took {phase8['seconds']:.1f} s")
+    t9 = time.perf_counter()
+    families, family_launches = phase_families(torch)
+    family_ref_err, family_ref_launches = phase_family_reference(torch)
+    families["seconds"] = time.perf_counter() - t9
+    log(f"  phase 9 took {families['seconds']:.1f} s")
 
-    # each kernel's launches over every main-path run (phases 3, 5, 6, 7, 8c and 8e single stream,
-    # both runs of phases 4, 5, 6e, 7, 8a and 8e, 8b's); its times at the hottest shape of its path, in bf16
+    # each kernel's launches over every main-path run (phases 3, 5, 6, 7, 8c, 8e and 9a/9b single
+    # stream, 9c's card passes, both runs of phases 4, 5, 6e, 7, 8a and 8e, 8b's); its times at the
+    # hottest shape of its path, in bf16
     runs = [batched["pipelined"]["launches"], batched["sync"]["launches"],
             moe["pipelined"]["launches"], moe["sync"]["launches"], *nde_batched_runs, *rec_batched_runs,
             phase8["a"]["pipelined"]["launches"], phase8["a"]["sync"]["launches"], phase8["b"]["launches"],
             *f32_batched_runs]
     total = {name: sum(r[name] for r in runs) for name in runs[0]}
     total["tree_attention"] += (launches + moe_launches + nde_single_launches + rec_single_launches
-                                + phase8["c_launches"] + f32_single_launches)
+                                + phase8["c_launches"] + f32_single_launches + family_launches
+                                + family_ref_launches)
     headline = {"tree_attention": "target tree pass", "paged_tree_attention": "paged target tree pass",
                 "ragged_paged_tree_attention": "ragged target pass, 8 owners",
                 "commit_kv": "36-layer arena, B*P = 32, chains + trash padding",
@@ -2605,7 +2912,9 @@ def main():
     in_engine = {phase: prof["profile"]["kernel_ms"] for phase, prof in
                  (("phase 3 granite one stream", main_path), ("phase 4 granite 8 streams", batched),
                   ("phase 5 qwen3-moe 8 streams", moe),
-                  ("phase 7 recurrentgemma-2b 8 streams", recurrent["recurrentgemma-2b"]))}
+                  ("phase 7 recurrentgemma-2b 8 streams", recurrent["recurrentgemma-2b"]),
+                  ("phase 9a whisper-medium one stream", families["whisper-medium"]),
+                  ("phase 9b internvl2-26b one stream", families["internvl2-26b"]))}
     for phase, rows_ in in_engine.items():
         log(f"  in-engine device time per call, {phase}: " + ", ".join(
             f"{k} {r['us_per_launch']:.2f} us x {r['launches']}" for k, r in rows_.items() if r["launches"]))
@@ -2613,6 +2922,7 @@ def main():
                "in_engine_device_time_per_call": in_engine,
                "batched_draft_card_vs_cpu_rel_err": batched_ref_err, "moe": moe,
                "moe_draft_card_vs_cpu_rel_err": moe_ref_err, "nde": nde, "recurrent": recurrent, "phase8": phase8,
+               "families": families, "family_drafts_card_vs_cpu_rel_err": family_ref_err,
                "nvidia_smi": smi,
                "seconds": time.perf_counter() - t_start}
     if args.json_dir:

@@ -10,10 +10,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-# norm scales, the MoE router, and the SSM's and RG-LRU's gates, decays and
-# norms stay fp32 whatever the model dtype, as in the JAX package (a rounded
-# router would change routing; a rounded decay would change the state)
-_FP32_LEAVES = ("ln1", "ln2", "final_ln", "router",
+# norm scales (the cross-attention's ln_x and the encoder's enc_ln too), the
+# MoE router, and the SSM's and RG-LRU's gates, decays and norms stay fp32
+# whatever the model dtype, as in the JAX package (a rounded router would
+# change routing; a rounded decay would change the state)
+_FP32_LEAVES = ("ln1", "ln2", "final_ln", "router", "ln_x", "enc_ln",
                 "ln", "ln_m", "A_log", "D", "dt_bias", "norm_z",  # models/ssm.py, the hybrid's rec layers
                 "w_a", "b_a", "w_i", "b_i", "lam")  # models/rglru.py
 

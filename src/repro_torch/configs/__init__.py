@@ -1,12 +1,11 @@
 """Architecture config registry: ``get_config(name)`` / ``get_smoke(name)``.
 
-The counterpart of src/repro/configs/__init__.py for the families this
-package runs so far: the dense configs (granite-8b, granite-3-2b,
-minitron-8b, qwen2-72b with its QKV bias, and the paper's Llama-3 70B/8B
-pair), the two MoE configs (qwen3-moe flat, llama4-maverick interleaved),
-the SSM mamba2-2.7b and the hybrid recurrentgemma-2b.  The encoder-decoder
-and VLM families (whisper-medium, internvl2-26b) join with the slice that
-ports them.
+The counterpart of src/repro/configs/__init__.py, with the same configs:
+the dense ones (granite-8b, granite-3-2b, minitron-8b, qwen2-72b with its
+QKV bias, and the paper's Llama-3 70B/8B pair), the two MoE configs
+(qwen3-moe flat, llama4-maverick interleaved), the SSM mamba2-2.7b, the
+hybrid recurrentgemma-2b, the encoder-decoder whisper-medium and the VLM
+internvl2-26b.
 """
 from __future__ import annotations
 
@@ -21,6 +20,8 @@ ARCHES = {
     "qwen2-72b": "qwen2_72b",
     "mamba2-2.7b": "mamba2_2_7b",
     "recurrentgemma-2b": "recurrentgemma_2b",
+    "whisper-medium": "whisper_medium",
+    "internvl2-26b": "internvl2_26b",
     "paper-llama70b": "paper_llama70b_8b",
 }
 

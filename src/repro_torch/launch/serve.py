@@ -12,6 +12,10 @@
         --arch granite-8b --streams 4 --requests 6 --data-shards 2
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --smoke \
         --arch granite-8b --verifier spectr --verify-on-device
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --smoke \
+        --arch whisper-medium
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --smoke \
+        --arch internvl2-26b
 
 The counterpart of src/repro/launch/serve.py: builds a target and a
 proportionally smaller draft of the same family with random weights drawn
@@ -25,7 +29,10 @@ single-stream engine's top-down OT verifiers on the device (the JAX
 launcher has no such flag; its engines take ``verify_on_device`` in
 ``EngineConfig``).  The SSM and hybrid targets (mamba2-2.7b,
 recurrentgemma-2b) take the replay target-pass strategy; a pure SSM pool
-has no KV to page.  It runs on
+has no KV to page.  whisper-medium serves single-stream only (the batched
+engines refuse encdec and vlm targets, as in JAX) on frame embeddings
+drawn from the launcher's rng before the prompts, as the JAX launcher
+draws them; internvl2-26b serves text-only, as there.  It runs on
 ``--device cuda`` (the default) and raises when no CUDA device is present;
 ``--device cpu`` runs every kernel's plain version instead.
 """
@@ -51,7 +58,8 @@ def make_draft_cfg(cfg):
     keeps a quarter of the layers at half the width; a hybrid draft keeps
     half the (rec, rec, attn) groups (at least one) at half the width, lru
     width and d_ff, with the target's heads; an MoE draft keeps half the
-    experts and top_k capped at that."""
+    experts and top_k capped at that; an encoder-decoder draft keeps a
+    quarter of the encoder layers too."""
     if cfg.arch_type == "ssm":
         return cfg.replace(name=cfg.name + "-draft", n_layers=max(cfg.n_layers // 4, 1),
                            d_model=max(cfg.d_model // 2, 64))
@@ -72,6 +80,8 @@ def make_draft_cfg(cfg):
     if cfg.arch_type == "moe":
         kw["n_experts"] = max(cfg.n_experts // 2, 2)
         kw["top_k"] = min(cfg.top_k, max(cfg.n_experts // 2, 2))
+    if cfg.arch_type == "encdec":
+        kw["n_enc_layers"] = max(cfg.n_enc_layers // 4, 1)
     return cfg.replace(**kw)
 
 
@@ -141,9 +151,13 @@ def main(argv=None):
         return
     eng = SpeculativeEngine(cfg, tp, dcfg, dp, ecfg, sampling)
     t0 = time.perf_counter()
+    kw = {}
+    if cfg.arch_type == "encdec":
+        kw["enc_embeds"] = torch.as_tensor(rng.standard_normal((1, cfg.enc_len, cfg.d_model)), dtype=cfg.tdtype,
+                                           device=device)
     for r in range(args.requests):
         prompt = rng.integers(0, cfg.vocab, size=8).tolist()
-        out = eng.generate(prompt, max_new=args.max_new)
+        out = eng.generate(prompt, max_new=args.max_new, **kw)
         print(f"req{r}: {out[:16]}{'...' if len(out) > 16 else ''}")
     dt = time.perf_counter() - t0
     c = eng.counters

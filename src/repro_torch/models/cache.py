@@ -260,13 +260,14 @@ def ragged_tree_mask(pos: torch.Tensor, q_pos: torch.Tensor, owner: torch.Tensor
 #
 #   attn k/v: 1;  attn pos/len: 0 per stream, none lockstep;
 #   state, conv, tail_state, tail_conv (ssm, hybrid tail): 1;
-#   rec_state, rec_conv (the hybrid's groups): 2;  top-level len: 0 per
-#   stream, none lockstep.
+#   rec_state, rec_conv (the hybrid's groups): 2;  cross_k, cross_v (the
+#   encoder-decoder's cached encoder K/V): 1;  top-level len: 0 per stream,
+#   none lockstep.
 #
 # The helpers below return new tensors for every leaf except where they say
 # so: scatter_streams writes the pool's attention k/v in place.
 
-_AXIS1 = ("state", "conv", "tail_state", "tail_conv")
+_AXIS1 = ("state", "conv", "tail_state", "tail_conv", "cross_k", "cross_v")
 
 
 def _axis(key: str, t: torch.Tensor, in_attn: bool):
@@ -447,7 +448,9 @@ def clone_cache(cache: dict) -> dict:
     """A copy a forward pass (or a scatter) may write without touching
     ``cache``: the attention k/v, the only tensors this package writes in
     place, are copied; every other leaf is shared (each write of it makes a
-    new tensor)."""
+    new tensor).  The encoder-decoder's ``cross_k``/``cross_v`` are shared
+    too: only a prefill given the encoder's input writes them, and it makes
+    new tensors."""
     out = dict(cache)
     if "attn" in cache:
         out["attn"] = {**cache["attn"], "k": cache["attn"]["k"].clone(), "v": cache["attn"]["v"].clone()}

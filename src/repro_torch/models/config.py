@@ -3,9 +3,9 @@
 The fields are the same, so the configs copy over one to one, except the two
 TPU switches ``attention_impl`` and ``kernel_interpret``: in this package the
 device decides (a CPU tensor takes a kernel's plain version, a CUDA tensor
-the kernel).  ``tdtype`` replaces ``jdtype``.  The package runs the dense
-and MoE families so far; the other families' fields are kept so their
-configs still load.
+the kernel).  ``tdtype`` replaces ``jdtype``.  The package runs every
+family of the JAX package: dense, MoE, SSM, hybrid, encoder-decoder and
+VLM.
 """
 from __future__ import annotations
 

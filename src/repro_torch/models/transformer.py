@@ -1,17 +1,23 @@
-"""The decoder stacks of every family this package runs: ``init_params``,
-``forward``, ``init_cache``.
+"""The model stacks of every family: ``init_params``, ``forward``,
+``init_cache``.
 
-The counterpart of the dense, MoE, SSM and hybrid branches of
-src/repro/models/transformer.py.  Parameters are plain dicts of tensors with
-the JAX nesting, layer-stacked on a leading axis
+The counterpart of src/repro/models/transformer.py (its dense, VLM, MoE,
+SSM, hybrid and encoder-decoder branches).  Parameters are plain dicts of
+tensors with the JAX nesting, layer-stacked on a leading axis
 (``params["blocks"]["attn"]["wq"]`` is (L, d, H*hd)), so the bridge maps one
 to one.  An interleaved MoE stack (``moe_every`` = m > 1, Llama-4 style)
 nests ``blocks.dense{i}`` (i < m - 1) and ``blocks.moe``, each stacked over
 the n_layers // m groups; layer i of group g is cache layer g*m + i.  The
 SSM stack (Mamba-2) is ``blocks.{ln, ssm}``; the hybrid (RecurrentGemma)
 stacks (rec, rec, local-attn) groups as ``blocks.{rec0, rec1, attn}`` and
-the n_layers % 3 recurrent layers past the last group as ``tail``.  Each
-``lax.scan`` over layers is a Python loop over layer views.
+the n_layers % 3 recurrent layers past the last group as ``tail``.  The
+VLM stack is the dense one plus ``patch_proj`` (d, d), which projects the
+patch embeddings a prefill prepends.  The encoder-decoder (Whisper
+backbone) adds ``enc_blocks`` (n_enc_layers dense layers) and ``enc_ln``,
+and each decoder layer a cross-attention (``ln_x``, ``xattn``) over the
+encoder's output, whose per-layer K/V a prefill caches as ``cross_k`` /
+``cross_v``.  Each ``lax.scan`` over layers is a Python loop over layer
+views.
 
 Every masked attention pass goes through ``kernels.ops``, as the JAX
 ``attention_impl="pallas"`` path does: ``gqa_tree_attention`` over a ring
@@ -19,7 +25,10 @@ cache (or none), ``gqa_paged_tree_attention`` over a paged pool and
 ``gqa_ragged_tree_attention`` for the ragged tree pass.  The hybrid's
 local-attention layers take the same kernels under the local-window mask.
 A pass whose tensors lie on the CPU takes the plain versions, one on the
-card launches the Hopper kernels, once per attention layer.
+card launches the Hopper kernels, once per attention layer.  The unmasked
+attention of the Whisper encoder and every cross-attention take the plain
+``gqa_attend``, as in JAX, whose ``mask is not None`` test sends them to
+XLA under ``attention_impl="pallas"`` too: they reach no TPU kernel.
 """
 from __future__ import annotations
 
@@ -40,6 +49,7 @@ from repro_torch.models.cache import (
 from repro_torch.models.layers import (
     attention_weights_init,
     causal_mask,
+    gqa_attend,
     init_dense,
     project_qkv,
     rms_norm,
@@ -52,13 +62,14 @@ from repro_torch.models.rglru import init_rglru, rglru_apply
 from repro_torch.models.ssm import init_ssm, ssm_apply
 
 RECURRENT = ("ssm", "hybrid")
+# the families whose every layer is attention + MLP (the dense-like stacks)
+ATTN_STACKS = ("dense", "vlm", "moe", "encdec")
+ARCH_TYPES = ATTN_STACKS + RECURRENT
 
 
-def _require_ported(cfg):
-    if cfg.arch_type not in ("dense", "moe", "ssm", "hybrid"):
-        raise NotImplementedError(
-            f"arch_type {cfg.arch_type!r}: this package runs the dense, moe, ssm and hybrid families "
-            "so far (ROADMAP queue 1 item 10 ports the encoder-decoder and VLM families)")
+def _check_arch(cfg):
+    if cfg.arch_type not in ARCH_TYPES:
+        raise ValueError(cfg.arch_type)
 
 
 # ----------------------------------------------------------------- params ----
@@ -87,14 +98,19 @@ def _stack_init(fn, n: int) -> dict:
     return out
 
 
-def _attn_mlp_layer_init(cfg, gen: torch.Generator, moe: bool = False, d_ff: int | None = None) -> dict:
+def _attn_mlp_layer_init(cfg, gen: torch.Generator, moe: bool = False, d_ff: int | None = None,
+                         cross: bool = False) -> dict:
     dev = gen.device
-    return {
+    p = {
         "ln1": torch.zeros((cfg.d_model,), dtype=torch.float32, device=dev),
         "attn": attention_weights_init(cfg, gen),
         "ln2": torch.zeros((cfg.d_model,), dtype=torch.float32, device=dev),
         "mlp": init_moe(cfg, gen) if moe else swiglu_init(cfg, gen, d_ff=d_ff),
     }
+    if cross:
+        p["ln_x"] = torch.zeros((cfg.d_model,), dtype=torch.float32, device=dev)
+        p["xattn"] = attention_weights_init(cfg, gen)
+    return p
 
 
 def _rec_layer_init(cfg, gen: torch.Generator) -> dict:
@@ -111,8 +127,9 @@ def init_params(cfg, gen: torch.Generator) -> dict:
     """Random weights drawn on ``gen.device``: normal x 0.02 for ``embed``,
     normal x 1/sqrt(d_in) for dense layers and experts, zero norm scales,
     the MoE router and the SSM and RG-LRU gates, decays and norms in fp32
-    (models/ssm.py, models/rglru.py)."""
-    _require_ported(cfg)
+    (models/ssm.py, models/rglru.py).  An unknown ``arch_type`` raises
+    ``ValueError``, as in JAX."""
+    _check_arch(cfg)
     dt, dev = cfg.tdtype, gen.device
     embed = torch.randn((cfg.vocab, cfg.d_model), generator=gen, device=dev, dtype=torch.float32)
     params = {
@@ -150,9 +167,15 @@ def init_params(cfg, gen: torch.Generator) -> dict:
         params["blocks"] = _stack_init(group_init, n_groups)
         if rem:
             params["tail"] = _stack_init(lambda: _rec_layer_init(cfg, gen), rem)
-    else:
+    elif cfg.arch_type == "encdec":
+        params["enc_blocks"] = _stack_init(lambda: _attn_mlp_layer_init(cfg, gen), cfg.n_enc_layers)
+        params["enc_ln"] = torch.zeros((cfg.d_model,), dtype=torch.float32, device=dev)
+        params["blocks"] = _stack_init(lambda: _attn_mlp_layer_init(cfg, gen, cross=True), cfg.n_layers)
+    else:  # dense, vlm, flat moe
         moe = cfg.arch_type == "moe"
         params["blocks"] = _stack_init(lambda: _attn_mlp_layer_init(cfg, gen, moe=moe), cfg.n_layers)
+        if cfg.arch_type == "vlm":
+            params["patch_proj"] = init_dense(gen, cfg.d_model, cfg.d_model, dt)
     return params
 
 
@@ -161,7 +184,7 @@ def _layer(tree: dict, i: int) -> dict:
 
 
 def _layers(params: dict, cfg):
-    """(layer params, is_moe) in cache-layer order (dense and MoE stacks)."""
+    """(layer params, is_moe) in cache-layer order (the ATTN_STACKS)."""
     blocks = params["blocks"]
     if cfg.arch_type == "moe" and cfg.moe_every > 1:
         m = cfg.moe_every
@@ -184,12 +207,15 @@ def _self_attention(p, cfg, x, positions, mask, layer_cache, ragged=None):
     pool.  ragged: None, or the (N,) owner row of each node of the ragged
     tree pass (-1 = padding lane); then x is (1, N, d), ``slots`` are
     per-node ring slots in the owner's row (Smax = padding lane) and
-    ``mask`` is (N, Smax)."""
+    ``mask`` is (N, Smax).  mask None (the Whisper encoder: no cache)
+    attends every key through the plain ``gqa_attend``, as JAX does."""
     B, T, _ = x.shape
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     q, k, v = project_qkv(p["attn"], cfg, h)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
+    if mask is None:
+        return x + gqa_attend(q, k, v, None).reshape(B, T, -1) @ p["attn"]["wo"]
     if ragged is not None:
         kc, vc, slots, page_tbl = layer_cache
         # each node into its owner's mapped lane; padding lanes (slot
@@ -220,9 +246,17 @@ def _self_attention(p, cfg, x, positions, mask, layer_cache, ragged=None):
     return x + att.reshape(B, T, -1) @ p["attn"]["wo"]
 
 
-def _attn_mlp_block(p, cfg, x, positions, mask, layer_cache, ragged=None, moe=False):
-    """Returns (x, aux): aux is the MoE layer's load-balance loss, else None."""
+def _attn_mlp_block(p, cfg, x, positions, mask, layer_cache, ragged=None, moe=False, enc_kv=None):
+    """Returns (x, aux): aux is the MoE layer's load-balance loss, else None.
+    enc_kv: None, or the layer's (cross_k, cross_v), each (B, S_enc, Hkv,
+    hd): the cross-attention (no rope, no bias, no mask, the plain
+    ``gqa_attend``) follows the self-attention."""
     x = _self_attention(p, cfg, x, positions, mask, layer_cache, ragged)
+    if enc_kv is not None:
+        B, T, _ = x.shape
+        h = rms_norm(x, p["ln_x"], cfg.norm_eps)
+        q = (h @ p["xattn"]["wq"]).reshape(B, T, cfg.n_heads, cfg.hd)
+        x = x + gqa_attend(q, enc_kv[0], enc_kv[1], None).reshape(B, T, -1) @ p["xattn"]["wo"]
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
     if moe:
         y, aux = moe_apply(p["mlp"], cfg, h)
@@ -270,8 +304,9 @@ def _tree_depths(anc: torch.Tensor, per_stream: bool = False) -> torch.Tensor:
     return a.to(torch.int32).sum(dim=-1, dtype=torch.int32) - 1
 
 
-def forward(params: dict, cfg, tokens: torch.Tensor, *, mode: str = "full",
+def forward(params: dict, cfg, tokens: torch.Tensor | None, *, mode: str = "full",
             cache: dict | None = None, anc: torch.Tensor | None = None,
+            embeds: torch.Tensor | None = None, enc_embeds: torch.Tensor | None = None,
             lens: torch.Tensor | None = None, ragged: dict | None = None):
     """Returns (logits fp32 (B, T, V), new_cache, {"aux": fp32 scalar,
     "hidden": (B, T, d)}); aux sums the MoE layers' load-balance losses (0
@@ -282,6 +317,17 @@ def forward(params: dict, cfg, tokens: torch.Tensor, *, mode: str = "full",
     mode "decode": T new tokens against the cache.
     mode "tree":   T speculation-tree tokens with ancestor mask ``anc``
                    ((T, T), or (B, T, T) per row over a per-stream cache).
+    embeds:        (B, P, d) modality embeddings.  A VLM given ``tokens``
+                   too prepends them, projected by ``patch_proj``: positions
+                   and the cache run over the P patches then the tokens.
+                   With ``tokens`` None they replace the token embeddings,
+                   unprojected, in every family (as in JAX).
+    enc_embeds:    (B, S_enc, d) encoder input frames (encdec): the encoder
+                   runs unmasked with rope over arange(S_enc), then each
+                   decoder layer's cross K/V are projected from its output
+                   and, when ``cache`` is given, stored as
+                   ``cross_k``/``cross_v`` (n_layers, B, S_enc, Hkv, hd).
+                   Without it an encdec pass reads the cache's.
     lens:          (B,) real-token counts of a padded pass over a per-stream
                    cache: row b's tokens past lens[b] are written but marked
                    invalid (pos = -1), and its length advances by lens[b].
@@ -304,11 +350,27 @@ def forward(params: dict, cfg, tokens: torch.Tensor, *, mode: str = "full",
     ``lens`` masks attention state only and the recurrent engines never pad
     (serving/batch_engine.py).
     """
-    _require_ported(cfg)
+    _check_arch(cfg)
     dt = cfg.tdtype
-    x = params["embed"][tokens].to(dt)
+    x = params["embed"][tokens].to(dt) if tokens is not None else embeds.to(dt)
+    if cfg.arch_type == "vlm" and embeds is not None and tokens is not None:
+        x = torch.cat([(embeds.to(dt) @ params["patch_proj"]).to(dt), x], dim=1)
     B, T, _ = x.shape
     dev = x.device
+
+    enc_kv = None
+    if cfg.arch_type == "encdec":
+        if enc_embeds is None:  # the cross K/V a prefill cached
+            enc_kv = (cache["cross_k"], cache["cross_v"])
+        else:
+            enc = enc_embeds.to(dt)
+            enc_pos = torch.arange(enc.shape[1], dtype=torch.int32, device=dev)
+            for i in range(cfg.n_enc_layers):
+                enc, _ = _attn_mlp_block(_layer(params["enc_blocks"], i), cfg, enc, enc_pos, None, None)
+            enc = rms_norm(enc, params["enc_ln"], cfg.norm_eps)
+            xattn = params["blocks"]["xattn"]
+            enc_kv = tuple(torch.stack([(enc @ xattn[w][i]).reshape(B, -1, cfg.n_kv_heads, cfg.hd)
+                                        for i in range(cfg.n_layers)]) for w in ("wk", "wv"))
 
     has_attn = cfg.arch_type != "ssm"
     if cache is None:
@@ -374,12 +436,15 @@ def forward(params: dict, cfg, tokens: torch.Tensor, *, mode: str = "full",
         mask_full, mask_local = _mk_masks(cfg, "full", T, None, positions, None, None)
 
     aux_total = torch.zeros((), dtype=torch.float32, device=dev)
-    if cfg.arch_type in ("dense", "moe"):
+    if cfg.arch_type in ATTN_STACKS:
         for i, (pl, moe) in enumerate(_layers(params, cfg)):
             layer_cache = None if cache is None else (cache["attn"]["k"][i], cache["attn"]["v"][i], slots, page_tbl)
-            x, aux = _attn_mlp_block(pl, cfg, x, positions, mask_full, layer_cache, owner, moe)
+            ekv = None if enc_kv is None else (enc_kv[0][i], enc_kv[1][i])
+            x, aux = _attn_mlp_block(pl, cfg, x, positions, mask_full, layer_cache, owner, moe, ekv)
             if aux is not None:
                 aux_total = aux_total + aux
+        if cache is not None and enc_embeds is not None and cfg.arch_type == "encdec":
+            new_cache["cross_k"], new_cache["cross_v"] = enc_kv
     elif cfg.arch_type == "ssm":
         states, convs = [], []
         for i in range(cfg.n_layers):
@@ -436,8 +501,10 @@ def init_cache(cfg, batch: int, smax: int, device, per_stream: bool = False,
     page: (pool_blocks, block_size) stores the KV as a paged arena of
     ``pool_blocks`` usable blocks shared through per-row block tables, with
     ``smax`` each row's logical capacity; requires per_stream.  A pure
-    recurrent (ssm) cache has no KV and ignores it."""
-    _require_ported(cfg)
+    recurrent (ssm) cache has no KV and ignores it.  An encdec cache also
+    holds zero ``cross_k``/``cross_v`` (n_layers, batch, cfg.enc_len, Hkv,
+    hd), which a prefill given ``enc_embeds`` replaces."""
+    _check_arch(cfg)
     if page is not None and not per_stream:
         raise ValueError("paged caches are per-stream by construction")
     dt = cfg.tdtype
@@ -447,8 +514,13 @@ def init_cache(cfg, batch: int, smax: int, device, per_stream: bool = False,
             return init_paged_attn_cache(cfg, n_layers, batch, page[0], page[1], smax, dt, device)
         return init_attn_cache(cfg, n_layers, batch, smax, dt, device, per_stream)
 
-    if cfg.arch_type in ("dense", "moe"):
-        return {"attn": attn_cache(cfg.n_layers)}
+    if cfg.arch_type in ATTN_STACKS:
+        cache = {"attn": attn_cache(cfg.n_layers)}
+        if cfg.arch_type == "encdec":
+            shape = (cfg.n_layers, batch, cfg.enc_len, cfg.n_kv_heads, cfg.hd)
+            cache["cross_k"] = torch.zeros(shape, dtype=dt, device=device)
+            cache["cross_v"] = torch.zeros(shape, dtype=dt, device=device)
+        return cache
     cache = {"len": torch.zeros((batch,) if per_stream else (), dtype=torch.int32, device=device)}
     if cfg.arch_type == "ssm":
         H, P, N = cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state

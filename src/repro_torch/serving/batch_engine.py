@@ -207,6 +207,8 @@ class BatchedSpeculativeEngine:
             raise ValueError(f"target vocab {target_cfg.vocab} != draft vocab {draft_cfg.vocab}")
         if n_slots < 1:
             raise ValueError(f"need at least one pool slot, got {n_slots}")
+        if target_cfg.arch_type in ("encdec", "vlm"):
+            raise ValueError("batched serving covers decoder-only archs (encdec/vlm prefill kwargs are single-stream)")
         if ecfg.verify_on_device:
             raise ValueError("batched serving verifies per-stream on host (verify_on_device consumes "
                              "randomness differently and would break batch-vs-single exactness)")

@@ -147,17 +147,30 @@ class SpeculativeEngine:
 
     # -------------------------------------------------------------- stream ---
 
-    def new_stream(self, prompt: list[int]) -> dict:
-        """Prefill prompt[:-1] into both caches; prompt[-1] is the pending root."""
+    def new_stream(self, prompt: list[int], enc_embeds=None, embeds=None) -> dict:
+        """Prefill prompt[:-1] into both caches; prompt[-1] is the pending root.
+
+        As in the JAX engine, only the target's prefill takes the modality
+        inputs (moved to the engine's device): an encdec target always gets
+        ``enc_embeds`` (None reads its cache's zero cross K/V), a VLM target
+        ``embeds`` when given (prepended patches; with a one-token prompt
+        they replace the tokens, unprojected).  The target prefills when
+        there is a context or such an input, the draft only on a context."""
         assert len(prompt) >= 1
         tcache = init_cache(self.tc, 1, self.ecfg.max_cache, self.device)
         dcache = init_cache(self.dc, 1, self.ecfg.max_cache, self.device)
+        kwargs_t = {}
+        if self.tc.arch_type == "encdec":
+            kwargs_t["enc_embeds"] = None if enc_embeds is None else torch.as_tensor(enc_embeds, device=self.device)
+        if self.tc.arch_type == "vlm" and embeds is not None:
+            kwargs_t["embeds"] = torch.as_tensor(embeds, device=self.device)
         ctx = prompt[:-1]
+        toks = self._tokens(ctx)[None] if ctx else None
         h_p = h_q = None
-        if ctx:
-            toks = self._tokens(ctx)[None]
-            _, tcache, ex_t = forward(self.tp, self.tc, toks, mode="full", cache=tcache)
+        if ctx or kwargs_t:
+            _, tcache, ex_t = forward(self.tp, self.tc, toks, mode="full", cache=tcache, **kwargs_t)
             h_p = _host(ex_t["hidden"][0, -1])
+        if ctx:
             _, dcache, ex_d = forward(self.dp, self.dc, toks, mode="full", cache=dcache)
             h_q = _host(ex_d["hidden"][0, -1])
         return {
@@ -379,8 +392,9 @@ class SpeculativeEngine:
 
     # ------------------------------------------------------------ generate ---
 
-    def generate(self, prompt: list[int], max_new: int = 64) -> list[int]:
-        stream = self.new_stream(prompt)
+    def generate(self, prompt: list[int], max_new: int = 64, **kw) -> list[int]:
+        """``kw``: ``new_stream``'s ``enc_embeds`` / ``embeds``."""
+        stream = self.new_stream(prompt, **kw)
         out: list[int] = []
         while len(out) < max_new:
             out.extend(self.step(stream))

@@ -185,8 +185,10 @@ def test_batched_engine_refuses_what_is_not_ported(models):
     _, (tt, ttp, td, tdp) = models
     with pytest.raises(NotImplementedError, match="queue 1 item 8b"):  # one pool over several devices
         tbe.BatchedSpeculativeEngine(tt, ttp, td, tdp, teng.EngineConfig(), mesh=["cpu", "cpu"])
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        tbe.BatchedSpeculativeEngine(tt.replace(arch_type="encdec"), ttp, td, tdp, teng.EngineConfig())
+    # refused as in JAX: the encdec/vlm prefill inputs are single-stream
+    for arch_type in ("encdec", "vlm"):
+        with pytest.raises(ValueError, match="batched serving covers decoder-only archs"):
+            tbe.BatchedSpeculativeEngine(tt.replace(arch_type=arch_type), ttp, td, tdp, teng.EngineConfig())
     # refused as in JAX: batched serving verifies per stream on the host
     with pytest.raises(ValueError, match="verifies per-stream on host"):
         tbe.BatchedSpeculativeEngine(tt, ttp, td, tdp, teng.EngineConfig(verify_on_device=True))

@@ -53,6 +53,9 @@ def cuda():
     (1, 8, 16, 4, 1024, 128, 1),   # batched admission prefill, draft
     (3, 19, 8, 2, 1000, 64, 3),    # two query tiles, ragged key chunk, per-row mask
     (1, 16, 4, 4, 33, 128, 1),     # one full query tile, G = 1
+    (1, 7, 16, 16, 1024, 64, 1),   # whisper-medium tree pass: MHA, G = 1, D 64
+    (1, 7, 48, 8, 1024, 128, 1),   # internvl2-26b tree pass: G = 6, 126 score rows, the last tile part filled
+    (1, 263, 48, 8, 1024, 128, 1),  # internvl2-26b prefill: 256 patches + 7 tokens, 13 query tiles
 ])
 def test_tree_attention_matches_plain_version(cuda, dtype, B, T, H, Hkv, S, D, Bm):
     gen = torch.Generator(device=cuda).manual_seed(B * 1000 + T)

@@ -103,8 +103,19 @@ def test_engine_refuses_what_is_not_ported(models):
     # on-device verification is ported (tests/test_torch_otlp_device.py): it builds
     eng = teng.SpeculativeEngine(tt, ttp, td, tdp, teng.EngineConfig(verify_on_device=True))
     assert eng.ecfg.verify_on_device and eng.ecfg.verifier in teng.TOPDOWN
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        teng.SpeculativeEngine(tt.replace(arch_type="encdec"), ttp, td, tdp, teng.EngineConfig()).new_stream([1, 2])
+    # an unknown family raises ValueError, as in JAX
+    with pytest.raises(ValueError, match="conv"):
+        teng.SpeculativeEngine(tt.replace(arch_type="conv"), ttp, td, tdp, teng.EngineConfig()).new_stream([1, 2])
+    # the encoder-decoder family is ported: a whisper smoke pair builds and prefills
+    from repro_torch.configs import get_smoke
+    from repro_torch.models.transformer import init_params
+
+    wt = get_smoke("whisper-medium").replace(dtype="float32")
+    wd = tserve.make_draft_cfg(wt)
+    eng = teng.SpeculativeEngine(wt, init_params(wt, torch.Generator().manual_seed(0)), wd,
+                                 init_params(wd, torch.Generator().manual_seed(1)), teng.EngineConfig(max_cache=64))
+    stream = eng.new_stream([1, 2, 3], enc_embeds=torch.randn(1, wt.enc_len, wt.d_model))
+    assert int(stream["tcache"]["attn"]["len"]) == 2 and stream["tcache"]["cross_k"].abs().max() > 0
 
 
 def _random_tree(rng, K, L1, L2, vocab=6):

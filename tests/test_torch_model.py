@@ -102,6 +102,18 @@ def test_init_params_layout_matches_jax():
 
 
 def test_non_dense_arch_raises():
-    tcfg = to_torch_cfg(granite_8b.smoke()).replace(arch_type="encdec")
-    with pytest.raises(NotImplementedError, match="dense"):
+    """An unknown family raises ValueError, as in JAX; the encoder-decoder
+    family is ported: a smoke of it builds its cache (with the zero cross
+    K/V) and prefills."""
+    tcfg = to_torch_cfg(granite_8b.smoke()).replace(arch_type="conv")
+    with pytest.raises(ValueError, match="conv"):
         tt.init_cache(tcfg, 1, SMAX, "cpu")
+    from repro.configs import whisper_medium
+
+    wcfg = to_torch_cfg(whisper_medium.smoke().replace(dtype="float32"))
+    cache = tt.init_cache(wcfg, 1, SMAX, "cpu")
+    assert cache["cross_k"].shape == (wcfg.n_layers, 1, wcfg.enc_len, wcfg.n_kv_heads, wcfg.hd)
+    params = tt.init_params(wcfg, torch.Generator().manual_seed(0))
+    logits, cache, _ = tt.forward(params, wcfg, torch.tensor([[1, 2, 3]]), cache=cache,
+                                  enc_embeds=torch.randn(1, wcfg.enc_len, wcfg.d_model))
+    assert logits.shape == (1, 3, wcfg.vocab) and int(cache["attn"]["len"]) == 3
