@@ -139,7 +139,32 @@
    its own width (1, 1500, 512), and the internvl2 draft cut to 2 layers
    given its patches, float32, the card against the CPU (the logits and
    the cached cross K/V within 1e-3 of their scale; launches exact).
-10. Prints the kernels' JSON line, then the card's line, then as the last
+10. Training, after every earlier model is freed; it launches no
+   hand-written kernel (they have no backward: training takes the plain
+   attention, as the JAX package trains through XLA), and every launch
+   count must read 0 across it.  (a) granite-3-2b at full width, nothing
+   cut, bf16, remat on: 20 steps of 4 x 1024 SyntheticLM tokens through
+   training/loop.train (AdamW lr 3e-4, warmup 1, cosine); the losses
+   finite and falling (the last 5's mean under the first), the parameters
+   changed, peak memory under 80 GB; the median step, tokens/s, the
+   model-FLOP share 6 N tokens / step / PEAK_FLOPS, the device-busy share
+   of a 2-step profile; a checkpoint of the full parameters saved, loaded
+   and compared bit for bit.  (b) qwen3-moe-235b-a22b at full width cut
+   from 94 layers to 1 (two layers' weights, gradients and AdamW state fit
+   no card), the MoE capacity-factor dispatch: 5 steps of 2 x 512 tokens,
+   losses finite, peak under 80 GB, the share of (token, choice) pairs
+   dropped each step (read by an untimed forward pass before the step).
+   (c) A train step of every smoke config in float32, the card against
+   the CPU: the loss within 1e-4 relative, each gradient leaf within 1e-3
+   of its own largest |value| (the recurrent scans' and the capacity
+   dispatch's backward on CUDA).  (d) Stand-ins for examples/
+   serve_speculative.py's 4-layer target and 1-layer draft (V 256,
+   float32; the target's heads regrouped as 3/1 of 64 over the same
+   widths, the draft's 2/1 widened to head_dim 64, since the tree kernels
+   compile no 32 or 48: the port cannot serve the example's own models) trained 120 steps each, then 4 requests of 48
+   tokens through SpeculativeEngine (specinfer, (2, 2, 2)), launch counts exact, block
+   efficiency reported.
+11. Prints the kernels' JSON line, then the card's line, then as the last
    line {"ok": true, "device": {...}}.  With ``--json-dir DIR`` it also
    writes the per-shape kernel table and a summary there as JSON.
 
@@ -2810,6 +2835,362 @@ def phase_family_reference(torch):
     log(f"  phase 9c took {time.perf_counter() - t_phase:.1f} s")
     return worst, launches
 
+# ------------------------------------------------------- phase 10: training ---
+
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = "granite-3-2b", 4, 1024, 20
+MOE_TRAIN_ARCH, MOE_TRAIN_LAYERS, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ, MOE_TRAIN_STEPS = \
+    "qwen3-moe-235b-a22b", 1, 2, 512, 5
+EXAMPLE_STEPS, EXAMPLE_V = 120, 256  # examples/serve_speculative.py
+
+
+def _timed(torch, step_fn, times):
+    """``step_fn`` with each call's wall (the card synchronised on both sides)
+    appended to ``times``."""
+    def timed(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step_fn(*args)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        return out
+    return timed
+
+
+def _zero_launches():
+    counters = _launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    return counters
+
+
+def _no_launches(counters, what):
+    """Training reaches no hand-written kernel: every count must still be 0."""
+    got = {name: fn.launches for name, fn in counters.items()}
+    if any(got.values()):
+        raise RuntimeError(f"{what} launched hand-written kernels: {got}")
+    return got
+
+
+def _busy_share(torch, fn, n):
+    """Device-busy share of the wall of ``n`` calls of ``fn`` under
+    torch.profiler (CUPTI): the summed kernel and copy time over the wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name: dict[str, float] = {}
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[evt.name] = by_name.get(evt.name, 0.0) + evt.time_range.elapsed_us() / 1e3
+    busy = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return {"wall_ms": wall_ms, "device_busy_ms": busy, "busy_share": busy / wall_ms, "top_kernels_ms": top}
+
+
+def phase_train_dense(torch):
+    """10a: granite-3-2b at full width, nothing cut, bf16, remat on, trained
+    TRAIN_STEPS steps of TRAIN_BATCH x TRAIN_SEQ SyntheticLM tokens through
+    training/loop.train (AdamW lr 3e-4, warmup 1, cosine), every launch count
+    0; then a 2-step profile and a checkpoint of the full parameters saved,
+    loaded and compared bit for bit."""
+    import gc
+
+    import numpy as np
+
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_params, make_train_step
+    from repro_torch.training.checkpoint import load_checkpoint, save_checkpoint
+    from repro_torch.training.data import SyntheticLM
+    from repro_torch.training.loop import to_device, train
+    from repro_torch.training.optim import AdamW, tree_leaves
+
+    t_phase = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    n_params = cfg.param_count()
+    log(f"== phase 10a: training {cfg.name} at full width, nothing cut: L={cfg.n_layers} d={cfg.d_model} "
+        f"H={cfg.n_heads} Hkv={cfg.n_kv_heads} ff={cfg.d_ff} V={cfg.vocab} ({n_params / 1e9:.2f} B params), "
+        f"{cfg.dtype}, remat={cfg.remat}, {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens")
+    it = SyntheticLM(cfg.vocab, seed=0).batches(TRAIN_BATCH, TRAIN_SEQ, seed=0)
+    t0 = time.perf_counter()
+    batches = [next(it) for _ in range(TRAIN_STEPS)]
+    log(f"  {TRAIN_STEPS} SyntheticLM batches drawn on the host in {time.perf_counter() - t0:.2f} s")
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    before = {"embed": params["embed"].clone(), "wq": params["blocks"]["attn"]["wq"][0].clone()}
+    opt = AdamW(lr=3e-4, total_steps=TRAIN_STEPS, warmup_steps=1)
+    times, lines = [], []
+    counters = _zero_launches()
+    params, losses = train(cfg, iter(batches), steps=TRAIN_STEPS, log_every=1, opt=opt, params=params,
+                           train_step=_timed(torch, make_train_step(cfg, opt), times), log_fn=lines.append,
+                           device="cuda")
+    torch.cuda.synchronize()
+    launches = _no_launches(counters, "10a training")
+    peak = torch.cuda.max_memory_allocated()
+    for line in lines[:3] + ["..."] + lines[-3:]:
+        log(f"  {line}")
+    vals = [l for _, l in losses]
+    first, last5 = vals[0], statistics.fmean(vals[-5:])
+    if not all(np.isfinite(vals)) or not last5 < first:
+        raise RuntimeError(f"10a: losses {vals} are not finite or do not fall (last 5 mean {last5} vs first {first})")
+    changed = not (torch.equal(before["embed"], params["embed"]) or torch.equal(before["wq"], params["blocks"]["attn"]["wq"][0]))
+    if not changed:
+        raise RuntimeError("10a: the parameters did not change")
+    if peak >= CARD_BYTES:
+        raise RuntimeError(f"10a: peak memory {peak} bytes is not under {CARD_BYTES:.0f}")
+    step_s = statistics.median(times)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    mfu = 6 * n_params * tokens / step_s / PEAK_FLOPS["bfloat16"]
+    res = {"losses": vals, "first_loss": first, "last5_mean_loss": last5, "step_ms": [t * 1e3 for t in times],
+           "median_step_ms": step_s * 1e3, "tokens_per_s": tokens / step_s, "model_flop_share": mfu,
+           "max_memory_allocated": peak, "launches": launches, "params": n_params}
+    log(f"  loss {first:.4f} -> last-5 mean {last5:.4f}; median step {step_s * 1e3:.2f} ms (first "
+        f"{times[0] * 1e3:.2f} ms), {tokens / step_s:.1f} tok/s, model-FLOP share 6*N*tokens/step/peak "
+        f"{100 * mfu:.2f} % of {PEAK_FLOPS['bfloat16']:.3g} FLOP/s; peak {peak / 2**30:.3f} GiB; "
+        f"kernel launches {launches}")
+    del before
+    step_fn = make_train_step(cfg, opt)
+    state = {"p": params, "o": opt.init(params)}
+    batch = to_device(batches[0], "cuda")
+
+    def one_step():
+        state["p"], state["o"], _ = step_fn(state["p"], state["o"], batch)
+
+    one_step()  # the profiled steps' optimizer state is warm, as in the loop
+    res["profile"] = _busy_share(torch, one_step, 2)
+    log(f"  profile of 2 steps: wall {res['profile']['wall_ms']:.2f} ms, device busy "
+        f"{res['profile']['device_busy_ms']:.2f} ms ({100 * res['profile']['busy_share']:.1f} %)")
+    for name, t in res["profile"]["top_kernels_ms"]:
+        log(f"    device {t:9.3f} ms  {name[:100]}")
+    del state, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "granite-3-2b.npz")
+        t0 = time.perf_counter()
+        save_checkpoint(path, params, step=TRAIN_STEPS)
+        save_s = time.perf_counter() - t0
+        size = Path(path).stat().st_size
+        t0 = time.perf_counter()
+        loaded, step = load_checkpoint(path, template=params, device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    same = step == TRAIN_STEPS and all(a.dtype == b.dtype and torch.equal(a, b)
+                                       for a, b in zip(tree_leaves(loaded), tree_leaves(params)))
+    if not same:
+        raise RuntimeError("10a: the loaded checkpoint differs from the saved parameters")
+    res["checkpoint"] = {"bytes": size, "save_s": save_s, "load_s": load_s}
+    log(f"  checkpoint of the full parameters: {size / 2**30:.3f} GiB, saved in {save_s:.2f} s, loaded to the card "
+        f"in {load_s:.2f} s, equal bit for bit")
+    del params, loaded
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 10a took {res['seconds']:.1f} s")
+    return res
+
+
+def phase_train_moe(torch):
+    """10b: qwen3-moe-235b-a22b at full width cut from 94 layers to
+    MOE_TRAIN_LAYERS (two layers' parameters, gradients and AdamW state fit
+    no card), bf16, the capacity-factor dispatch, MOE_TRAIN_STEPS steps of
+    MOE_TRAIN_BATCH x MOE_TRAIN_SEQ tokens; the share of (token, choice)
+    pairs dropped each step."""
+    import gc
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import forward, make_train_step
+    from repro_torch.training.data import SyntheticLM
+    from repro_torch.training.loop import train
+    from repro_torch.training.optim import AdamW
+
+    t_phase = time.perf_counter()
+    full = get_config(MOE_TRAIN_ARCH)
+    cfg = full.replace(n_layers=MOE_TRAIN_LAYERS)
+    log(f"== phase 10b: training {cfg.name} at full width, cut from {full.n_layers} to {cfg.n_layers} layer(s): "
+        f"d={cfg.d_model} H={cfg.n_heads} Hkv={cfg.n_kv_heads} E={cfg.n_experts} top-{cfg.top_k} ff={cfg.d_ff} "
+        f"V={cfg.vocab} ({cfg.param_count() / 1e9:.2f} B params), capacity_factor {cfg.capacity_factor}, "
+        f"{MOE_TRAIN_STEPS} steps of {MOE_TRAIN_BATCH} x {MOE_TRAIN_SEQ} tokens")
+    it = SyntheticLM(cfg.vocab, seed=0).batches(MOE_TRAIN_BATCH, MOE_TRAIN_SEQ, seed=0)
+    batches = [next(it) for _ in range(MOE_TRAIN_STEPS)]
+    n = MOE_TRAIN_BATCH * MOE_TRAIN_SEQ
+    C = moe.moe_capacity(n, cfg, train=True)
+    # each step's drops are read outside its timing: an untimed no-grad forward pass with train=True on the
+    # step's parameters and tokens, moe.route counted (the step's own pass and remat's recompute route the
+    # same pairs), so the timed step runs the program's own route
+    calls, route = [], moe.route
+
+    def counted_route(p, cfg_, xf):
+        out = route(p, cfg_, xf)
+        calls.append(((out[3] >= C).sum(), out[3].numel()))
+        return out
+
+    shares = []
+    opt = AdamW(lr=3e-4, total_steps=MOE_TRAIN_STEPS, warmup_steps=1)
+    times, lines = [], []
+    timed = _timed(torch, make_train_step(cfg, opt), times)
+
+    def step(params, opt_state, batch):
+        calls.clear()
+        moe.route = counted_route
+        try:
+            with torch.no_grad():
+                forward(params, cfg, batch["tokens"], mode="full", train=True)
+        finally:
+            moe.route = route
+        shares.append(sum(int(d) for d, _ in calls) / sum(p for _, p in calls))
+        return timed(params, opt_state, batch)
+
+    torch.cuda.reset_peak_memory_stats()
+    counters = _zero_launches()
+    params, losses = train(cfg, iter(batches), steps=MOE_TRAIN_STEPS, log_every=1, opt=opt, seed=0,
+                           train_step=step, log_fn=lines.append, device="cuda")
+    torch.cuda.synchronize()
+    launches = _no_launches(counters, "10b training")
+    peak = torch.cuda.max_memory_allocated()
+    vals = [l for _, l in losses]
+    for line in lines:
+        log(f"  {line}")
+    if not all(np.isfinite(vals)):
+        raise RuntimeError(f"10b: losses {vals} are not finite")
+    if peak >= CARD_BYTES:
+        raise RuntimeError(f"10b: peak memory {peak} bytes is not under {CARD_BYTES:.0f}")
+    res = {"losses": vals, "capacity": C, "dropped_share": shares, "step_ms": [t * 1e3 for t in times],
+           "median_step_ms": statistics.median(times) * 1e3, "max_memory_allocated": peak, "launches": launches,
+           "routings_counted_per_step": len(calls)}
+    log(f"  capacity {C} slots an expert for {n} tokens x top-{cfg.top_k}; dropped share of (token, choice) pairs "
+        f"by step {', '.join(f'{s:.4f}' for s in shares)} (read outside the timed steps, "
+        f"{res['routings_counted_per_step']} routing(s) a step); median step {res['median_step_ms']:.2f} ms; peak "
+        f"{peak / 2**30:.3f} GiB; kernel launches {launches}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 10b took {res['seconds']:.1f} s")
+    return res
+
+
+def phase_train_reference(torch):
+    """10c: one train step's loss and gradients of every list_arches() smoke
+    config in float32, the card against the CPU, from the same parameters
+    and batch: the loss within 1e-4 relative, each gradient leaf within 1e-3
+    of its own largest |value|.  Every launch count stays 0."""
+    import numpy as np
+
+    from repro_torch.configs import get_smoke, list_arches
+    from repro_torch.models.transformer import init_params, loss_and_grads
+    from repro_torch.training.loop import to_device
+    from repro_torch.training.optim import tree_leaves, tree_map
+
+    t_phase = time.perf_counter()
+    log("== phase 10c: a train step of every smoke config, float32, the card against the CPU")
+    worst_loss = worst_grad = 0.0
+    counters = _zero_launches()
+    for i, arch in enumerate(list_arches()):
+        cfg = get_smoke(arch).replace(dtype="float32")
+        cpu_params = init_params(cfg, torch.Generator().manual_seed(i))
+        rng = np.random.default_rng(i)
+        toks = rng.integers(0, cfg.vocab, (2, 17))
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        if cfg.arch_type == "encdec":
+            batch["enc_embeds"] = rng.standard_normal((2, cfg.enc_len, cfg.d_model)).astype(np.float32)
+        elif cfg.arch_type == "vlm":
+            batch["embeds"] = rng.standard_normal((2, cfg.n_patches, cfg.d_model)).astype(np.float32)
+        out = {}
+        for dev, params in (("cuda", tree_map(lambda t: t.to("cuda"), cpu_params)), ("cpu", cpu_params)):
+            loss, grads = loss_and_grads(params, cfg, to_device(batch, dev))
+            out[dev] = (loss.item(), [g.cpu() for g in tree_leaves(grads)])
+        (lc, gc_), (lh, gh) = out["cuda"], out["cpu"]
+        rel_loss = abs(lc - lh) / abs(lh)
+        rel_grad = max((a - b).abs().max().item() / max(b.abs().max().item(), 1e-30) if b.abs().max() > 0
+                       else a.abs().max().item() for a, b in zip(gc_, gh))
+        worst_loss, worst_grad = max(worst_loss, rel_loss), max(worst_grad, rel_grad)
+        log(f"  {arch:28s} ({cfg.arch_type:6s}) loss {lh:.6f}: |card - cpu| / |cpu| {rel_loss:.3e}; worst gradient "
+            f"leaf max|card - cpu| / max|cpu| {rel_grad:.3e} over {len(gh)} leaves")
+        if not np.isfinite(lc) or rel_loss > 1e-4 or rel_grad > 1e-3:
+            raise RuntimeError(f"10c {arch}: the card's train step disagrees with the CPU's "
+                               f"(loss {rel_loss}, gradients {rel_grad})")
+    launches = _no_launches(counters, "10c")
+    seconds = time.perf_counter() - t_phase
+    log(f"  phase 10c took {seconds:.1f} s (worst loss {worst_loss:.3e}, worst gradient leaf {worst_grad:.3e}; "
+        f"kernel launches {launches})")
+    return {"worst_loss_rel": worst_loss, "worst_grad_rel": worst_grad, "seconds": seconds}
+
+
+def phase_train_then_serve(torch):
+    """10d: stand-ins for examples/serve_speculative.py's models on the
+    card: its 4-layer d 192 target and 1-layer d 96 draft at V 256,
+    float32, trained EXAMPLE_STEPS steps each on SyntheticLM(256, seed 3)
+    (no kernel launched), then 4 requests of 48 tokens through
+    SpeculativeEngine, specinfer at (2, 2, 2), temperature 0.9, launch
+    counts exact.  Returns (results, launches).
+
+    The example's heads (the target's 6/2 of 32, the draft's 2/1 of 48)
+    have no instance of the tree kernels (head_dim 64, 128 and 256 are
+    compiled; ROADMAP queue 2 item F).  So the target's same q and kv
+    widths are grouped as 3/1 heads of 64 (every weight keeps its shape)
+    and the draft's 2/1 heads take head_dim 64 (its q and kv widths 128
+    and 64 over d 96)."""
+    import gc
+
+    import numpy as np
+
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.serving.engine import EngineConfig, SamplingParams, SpeculativeEngine
+    from repro_torch.training.data import SyntheticLM
+    from repro_torch.training.loop import train
+
+    t_phase = time.perf_counter()
+    log("== phase 10d: stand-ins for examples/serve_speculative.py's models (heads at head_dim 64: the port "
+        "cannot serve its heads of 32 and 48) on the card: train a target and a draft, then serve them")
+    tcfg = ModelConfig(name="target", n_layers=4, d_model=192, n_heads=3, n_kv_heads=1, d_ff=384,
+                       vocab=EXAMPLE_V, dtype="float32")
+    dcfg = ModelConfig(name="draft", n_layers=1, d_model=96, n_heads=2, n_kv_heads=1, head_dim=64, d_ff=192,
+                       vocab=EXAMPLE_V, dtype="float32")
+    lm = SyntheticLM(EXAMPLE_V, seed=3)
+    res = {}
+    counters = _zero_launches()
+    trained = {}
+    for role, cfg, data_seed, lr in (("target", tcfg, 1, 2e-3), ("draft", dcfg, 7, 3e-3)):
+        t0 = time.perf_counter()
+        lines = []
+        trained[role], losses = train(cfg, lm.batches(8, 64, seed=data_seed), steps=EXAMPLE_STEPS, lr=lr,
+                                      log_every=40, log_fn=lines.append, device="cuda")
+        torch.cuda.synchronize()
+        res[role] = {"losses": losses, "seconds": time.perf_counter() - t0, "params": cfg.param_count()}
+        log(f"  {role} ({cfg.param_count() / 1e6:.2f} M params) {EXAMPLE_STEPS} steps in "
+            f"{res[role]['seconds']:.2f} s: " + "; ".join(lines))
+        if not all(np.isfinite(l) for _, l in losses) or not losses[-1][1] < losses[0][1]:
+            raise RuntimeError(f"10d: the {role}'s loss does not fall: {losses}")
+    _no_launches(counters, "10d training")
+    rng = np.random.default_rng(0)
+    prompts = [lm.sample(rng, 12).tolist() for _ in range(4)]
+    eng = SpeculativeEngine(tcfg, trained["target"], dcfg, trained["draft"],
+                            EngineConfig(verifier="specinfer", K=2, L1=2, L2=2, max_cache=512, seed=0),
+                            SamplingParams(0.9, 1.0))
+    outs, wall, launches, be = _run_engine(torch, eng, prompts, 48, (tcfg.n_layers, dcfg.n_layers))
+    c = eng.counters
+    for r, out in enumerate(outs):
+        log(f"  req{r}: prompt={prompts[r][:6]}.. -> {out[:10]}..")
+    res.update(block_efficiency=be, target_calls=c["target_calls"], tokens=4 * 48, wall_s=wall, launches=launches,
+               tokens_per_target_call=4 * 48 / c["target_calls"])
+    log(f"  block_efficiency={be:.4f} target_calls={c['target_calls']} for {4 * 48} tokens "
+        f"({res['tokens_per_target_call']:.2f} tokens a target call), wall {wall:.3f} s, tree_attention "
+        f"launches {launches} (= {tcfg.n_layers} x {4 + c['target_calls']} + {dcfg.n_layers} x "
+        f"{4 + c['draft_calls']})")
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 10d took {res['seconds']:.1f} s")
+    return res, launches
+
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -2865,10 +3246,15 @@ def main():
     family_ref_err, family_ref_launches = phase_family_reference(torch)
     families["seconds"] = time.perf_counter() - t9
     log(f"  phase 9 took {families['seconds']:.1f} s")
+    t10 = time.perf_counter()
+    training = {"a": phase_train_dense(torch), "b": phase_train_moe(torch), "c": phase_train_reference(torch)}
+    training["d"], train_serve_launches = phase_train_then_serve(torch)
+    training["seconds"] = time.perf_counter() - t10
+    log(f"  phase 10 took {training['seconds']:.1f} s")
 
-    # each kernel's launches over every main-path run (phases 3, 5, 6, 7, 8c, 8e and 9a/9b single
-    # stream, 9c's card passes, both runs of phases 4, 5, 6e, 7, 8a and 8e, 8b's); its times at the
-    # hottest shape of its path, in bf16
+    # each kernel's launches over every main-path run (phases 3, 5, 6, 7, 8c, 8e, 9a/9b and 10d single
+    # stream, 9c's card passes, both runs of phases 4, 5, 6e, 7, 8a and 8e, 8b's; phase 10's training
+    # launches none); its times at the hottest shape of its path, in bf16
     runs = [batched["pipelined"]["launches"], batched["sync"]["launches"],
             moe["pipelined"]["launches"], moe["sync"]["launches"], *nde_batched_runs, *rec_batched_runs,
             phase8["a"]["pipelined"]["launches"], phase8["a"]["sync"]["launches"], phase8["b"]["launches"],
@@ -2876,7 +3262,7 @@ def main():
     total = {name: sum(r[name] for r in runs) for name in runs[0]}
     total["tree_attention"] += (launches + moe_launches + nde_single_launches + rec_single_launches
                                 + phase8["c_launches"] + f32_single_launches + family_launches
-                                + family_ref_launches)
+                                + family_ref_launches + train_serve_launches)
     headline = {"tree_attention": "target tree pass", "paged_tree_attention": "paged target tree pass",
                 "ragged_paged_tree_attention": "ragged target pass, 8 owners",
                 "commit_kv": "36-layer arena, B*P = 32, chains + trash padding",
@@ -2922,7 +3308,7 @@ def main():
                "in_engine_device_time_per_call": in_engine,
                "batched_draft_card_vs_cpu_rel_err": batched_ref_err, "moe": moe,
                "moe_draft_card_vs_cpu_rel_err": moe_ref_err, "nde": nde, "recurrent": recurrent, "phase8": phase8,
-               "families": families, "family_drafts_card_vs_cpu_rel_err": family_ref_err,
+               "families": families, "family_drafts_card_vs_cpu_rel_err": family_ref_err, "training": training,
                "nvidia_smi": smi,
                "seconds": time.perf_counter() - t_start}
     if args.json_dir:

@@ -13,6 +13,13 @@ the pool's native (NBLK, block, Hkv, D) layout through the block table).
 The two decode entries have no engine caller, as in the JAX package (whose
 engines send every masked pass to the tree kernels): the tests and
 ``chip_smoke.py`` reach them here.
+
+The hand-written kernels have no backward.  Every wrapper refuses a CUDA
+tensor that requires grad while grad mode is on (``refuse_grad``), before it
+launches: its output would carry no ``grad_fn``, and a gradient through it
+would be lost without a word.  Training takes the plain, differentiable
+attention instead (``forward(..., train=True)``), as the JAX package trains
+through XLA.
 """
 from __future__ import annotations
 
@@ -32,12 +39,25 @@ from repro_torch.kernels.ref import (
 from repro_torch.kernels.tree_attention import tree_attention
 
 
+def refuse_grad(name: str, device_type: str, *tensors: torch.Tensor) -> None:
+    """Raise if a kernel on ``device_type`` would be launched on a tensor
+    that requires grad while grad mode is on.  Every wrapper calls it
+    before its kernel; the CPU's plain versions are differentiable and
+    never call it."""
+    if device_type != "cpu" and torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: a {device_type} tensor requires grad, but the hand-written kernels have no "
+            "backward; training takes the plain attention (forward(..., train=True)), as the JAX "
+            "package trains through XLA")
+
+
 def gqa_tree_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        mask: torch.Tensor) -> torch.Tensor:
     """q (B, T, H, D); k, v (B, S, Hkv, D); mask (B, T, S) or (1, T, S) bool.
     Returns (B, T, H, D)."""
     if q.device.type == "cpu":
         return tree_attention_ref(q, k, v, mask)
+    refuse_grad("tree_attention", q.device.type, q, k, v)
     return tree_attention(q, k, v, mask)
 
 
@@ -51,6 +71,7 @@ def gqa_paged_tree_attention(q: torch.Tensor, k_arena: torch.Tensor, v_arena: to
     Returns (B, T, H, D)."""
     if q.device.type == "cpu":
         return paged_tree_attention_ref(q, k_arena, v_arena, tbl, mask)
+    refuse_grad("paged_tree_attention", q.device.type, q, k_arena, v_arena)
     return paged_tree_attention(q, k_arena, v_arena, tbl, mask)
 
 
@@ -67,6 +88,7 @@ def gqa_ragged_tree_attention(q: torch.Tensor, k_arena: torch.Tensor, v_arena: t
     (N, H, D)."""
     if q.device.type == "cpu":
         return ragged_tree_attention_ref(q, k_arena, v_arena, tbl, owner, mask)
+    refuse_grad("ragged_paged_tree_attention", q.device.type, q, k_arena, v_arena)
     return ragged_paged_tree_attention(q, k_arena, v_arena, tbl, owner, mask)
 
 
@@ -81,6 +103,7 @@ def pool_commit_kv(k: torch.Tensor, v: torch.Tensor, src: torch.Tensor, dst: tor
     Returns (k, v)."""
     if k.device.type == "cpu":
         return commit_kv_ref(k, v, src, dst)
+    refuse_grad("commit_kv", k.device.type, k, v)
     return commit_kv(k, v, src, dst)
 
 
@@ -93,6 +116,7 @@ def gqa_decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     0); a row with no valid slot gets the mean of V.  Returns (B, 1, H, D)."""
     if q.device.type == "cpu":
         return decode_attention_ref(q, k, v, lengths, window)
+    refuse_grad("decode_attention", q.device.type, q, k, v)
     return decode_attention(q, k, v, lengths, window=window)
 
 
@@ -107,4 +131,5 @@ def gqa_paged_decode_attention(q: torch.Tensor, k_arena: torch.Tensor, v_arena: 
     Returns (B, 1, H, D)."""
     if q.device.type == "cpu":
         return paged_decode_attention_ref(q, k_arena, v_arena, tbl, lengths, window)
+    refuse_grad("paged_decode_attention", q.device.type, q, k_arena, v_arena)
     return paged_decode_attention(q, k_arena, v_arena, tbl, lengths, window=window)

@@ -3,8 +3,8 @@
 The counterpart of ``shard_meshes`` in src/repro/launch/mesh.py.  torch has
 no mesh object: a shard's "mesh" is the one ``torch.device`` its pool lives
 on.  The production meshes of the JAX module (``make_production_mesh``,
-``data_axes``) shard parameters over a TPU pod; they have no use on one card
-and wait for training (ROADMAP queue 1 item 13).
+``data_axes``) shard parameters over a TPU pod; they have no use on one card,
+so training leaves them out (launch/train.py; ROADMAP queue 1 item 8b).
 """
 from __future__ import annotations
 

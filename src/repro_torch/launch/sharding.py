@@ -5,7 +5,9 @@ The counterpart of the pool half of src/repro/launch/sharding.py
 ``PartitionSpec``: a leaf's spec is the index of its stream axis, which the
 data axis splits, or None where the leaf replicates.  The parameter rules
 of the JAX module (``param_shardings``, ``batch_shardings``) shard weights
-over a TPU pod and have no use on one card (ROADMAP queue 1 item 13).
+over a TPU pod and have no use on one card: training leaves them out
+(launch/train.py), and placement across cards waits with ROADMAP queue 1
+item 8b.
 """
 from __future__ import annotations
 

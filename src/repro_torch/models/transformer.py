@@ -1,5 +1,6 @@
 """The model stacks of every family: ``init_params``, ``forward``,
-``init_cache``.
+``init_cache``, and training's ``loss_fn``, ``loss_and_grads`` and
+``make_train_step``.
 
 The counterpart of src/repro/models/transformer.py (its dense, VLM, MoE,
 SSM, hybrid and encoder-decoder branches).  Parameters are plain dicts of
@@ -29,10 +30,23 @@ card launches the Hopper kernels, once per attention layer.  The unmasked
 attention of the Whisper encoder and every cross-attention take the plain
 ``gqa_attend``, as in JAX, whose ``mask is not None`` test sends them to
 XLA under ``attention_impl="pallas"`` too: they reach no TPU kernel.
+
+Training (``forward(..., train=True)``, set by ``loss_fn``) takes the plain,
+differentiable ``gqa_attend`` under the causal or local-window mask on every
+device, so it reaches no hand-written kernel (they have no backward, and
+``kernels.ops`` refuses a tensor that requires grad).  This is the JAX
+package's training path: it trains through its default
+``attention_impl="xla"`` (src/repro/models/config.py:39), and under
+``"pallas"`` ``jax.value_and_grad(loss_fn)`` raises an ``AssertionError``
+from the ``pallas_call``, whose kernels define no VJP.  ``train=True`` also
+turns on the MoE capacity-factor dispatch (models/moe.py) and, with
+``cfg.remat``, recomputes each layer's activations in the backward pass
+(``torch.utils.checkpoint``), as JAX's ``jax.checkpoint`` of each scan body.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.ops import gqa_paged_tree_attention, gqa_ragged_tree_attention, gqa_tree_attention
 from repro_torch.models.cache import (
@@ -77,6 +91,10 @@ def _check_arch(cfg):
 
 def _map(fn, tree):
     return {k: _map(fn, v) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
+
+
+def _leaves(tree) -> list:
+    return [x for v in tree.values() for x in (_leaves(v) if isinstance(v, dict) else [v])]
 
 
 def _stack_init(fn, n: int) -> dict:
@@ -179,8 +197,14 @@ def init_params(cfg, gen: torch.Generator) -> dict:
     return params
 
 
-def _layer(tree: dict, i: int) -> dict:
-    return _map(lambda t: t[i], tree)
+def _unstack(tree: dict) -> list[dict]:
+    """The layer views of a layer-stacked tree, by one ``unbind`` a leaf.
+    In a training pass the backward of ``unbind`` stacks every layer's
+    gradient in one op; taking a layer at a time (``t[i]``) would add a
+    stack-sized gradient for each layer, traffic quadratic in depth."""
+    parts = {k: _unstack(v) if isinstance(v, dict) else v.unbind(0) for k, v in tree.items()}
+    n = len(next(iter(parts.values())))
+    return [{k: p[i] for k, p in parts.items()} for i in range(n)]
 
 
 def _layers(params: dict, cfg):
@@ -188,34 +212,36 @@ def _layers(params: dict, cfg):
     blocks = params["blocks"]
     if cfg.arch_type == "moe" and cfg.moe_every > 1:
         m = cfg.moe_every
-        for g in range(cfg.n_layers // m):
+        dense = [_unstack(blocks[f"dense{i}"]) for i in range(m - 1)]
+        for g, moe_layer in enumerate(_unstack(blocks["moe"])):
             for i in range(m - 1):
-                yield _layer(blocks[f"dense{i}"], g), False
-            yield _layer(blocks["moe"], g), True
+                yield dense[i][g], False
+            yield moe_layer, True
     else:
         moe = cfg.arch_type == "moe"
-        for i in range(cfg.n_layers):
-            yield _layer(blocks, i), moe
+        for layer in _unstack(blocks):
+            yield layer, moe
 
 
 # ----------------------------------------------------------------- blocks ----
 
 
-def _self_attention(p, cfg, x, positions, mask, layer_cache, ragged=None):
+def _self_attention(p, cfg, x, positions, mask, layer_cache, ragged=None, train=False):
     """layer_cache: None or (k, v, slots, page) views of one layer, with
     page = None (ring cache) or the (B, max_blocks) block table of a paged
     pool.  ragged: None, or the (N,) owner row of each node of the ragged
     tree pass (-1 = padding lane); then x is (1, N, d), ``slots`` are
     per-node ring slots in the owner's row (Smax = padding lane) and
     ``mask`` is (N, Smax).  mask None (the Whisper encoder: no cache)
-    attends every key through the plain ``gqa_attend``, as JAX does."""
+    attends every key through the plain ``gqa_attend``, as JAX does, and so
+    does a training pass (``train``, no cache) under its causal mask."""
     B, T, _ = x.shape
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     q, k, v = project_qkv(p["attn"], cfg, h)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
-    if mask is None:
-        return x + gqa_attend(q, k, v, None).reshape(B, T, -1) @ p["attn"]["wo"]
+    if mask is None or train:
+        return x + gqa_attend(q, k, v, mask).reshape(B, T, -1) @ p["attn"]["wo"]
     if ragged is not None:
         kc, vc, slots, page_tbl = layer_cache
         # each node into its owner's mapped lane; padding lanes (slot
@@ -246,12 +272,13 @@ def _self_attention(p, cfg, x, positions, mask, layer_cache, ragged=None):
     return x + att.reshape(B, T, -1) @ p["attn"]["wo"]
 
 
-def _attn_mlp_block(p, cfg, x, positions, mask, layer_cache, ragged=None, moe=False, enc_kv=None):
+def _attn_mlp_block(p, cfg, x, positions, mask, layer_cache, ragged=None, moe=False, enc_kv=None,
+                    train=False):
     """Returns (x, aux): aux is the MoE layer's load-balance loss, else None.
     enc_kv: None, or the layer's (cross_k, cross_v), each (B, S_enc, Hkv,
     hd): the cross-attention (no rope, no bias, no mask, the plain
     ``gqa_attend``) follows the self-attention."""
-    x = _self_attention(p, cfg, x, positions, mask, layer_cache, ragged)
+    x = _self_attention(p, cfg, x, positions, mask, layer_cache, ragged, train)
     if enc_kv is not None:
         B, T, _ = x.shape
         h = rms_norm(x, p["ln_x"], cfg.norm_eps)
@@ -259,7 +286,7 @@ def _attn_mlp_block(p, cfg, x, positions, mask, layer_cache, ragged=None, moe=Fa
         x = x + gqa_attend(q, enc_kv[0], enc_kv[1], None).reshape(B, T, -1) @ p["xattn"]["wo"]
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
     if moe:
-        y, aux = moe_apply(p["mlp"], cfg, h)
+        y, aux = moe_apply(p["mlp"], cfg, h, train)
         return x + y, aux
     return x + swiglu(p["mlp"], h), None
 
@@ -270,6 +297,11 @@ def _rec_block(p, cfg, x, cache):
     x = x + y
     h = rms_norm(x, p["ln_m"], cfg.norm_eps)
     return x + swiglu(p["mlp"], h), new_cache
+
+
+def _ssm_block(p, cfg, x, cache):
+    y, new_cache = ssm_apply(p["ssm"], cfg, rms_norm(x, p["ln"], cfg.norm_eps), cache)
+    return x + y, new_cache
 
 
 # ---------------------------------------------------------------- forward ----
@@ -307,7 +339,7 @@ def _tree_depths(anc: torch.Tensor, per_stream: bool = False) -> torch.Tensor:
 def forward(params: dict, cfg, tokens: torch.Tensor | None, *, mode: str = "full",
             cache: dict | None = None, anc: torch.Tensor | None = None,
             embeds: torch.Tensor | None = None, enc_embeds: torch.Tensor | None = None,
-            lens: torch.Tensor | None = None, ragged: dict | None = None):
+            lens: torch.Tensor | None = None, ragged: dict | None = None, train: bool = False):
     """Returns (logits fp32 (B, T, V), new_cache, {"aux": fp32 scalar,
     "hidden": (B, T, d)}); aux sums the MoE layers' load-balance losses (0
     for a dense stack).
@@ -343,6 +375,10 @@ def forward(params: dict, cfg, tokens: torch.Tensor | None, *, mode: str = "full
                    discarded.  (The JAX package also runs it over a
                    ring cache, where it drops padding writes; the batched
                    engine here goes ragged on a paged pool only.)
+    train:         training semantics (set by ``loss_fn``; no cache): the
+                   plain causal attention, the MoE capacity-factor dispatch
+                   and, with ``cfg.remat``, each layer (each encoder layer
+                   too) recomputed in the backward pass.
     The new K/V are written into ``cache``'s k/v in place (models/cache.py);
     ``new_cache`` shares them and carries new pos/len tensors.  Recurrent
     state (the SSM's ``state``/``conv``, the hybrid's ``rec_*``/``tail_*``)
@@ -351,6 +387,12 @@ def forward(params: dict, cfg, tokens: torch.Tensor | None, *, mode: str = "full
     (serving/batch_engine.py).
     """
     _check_arch(cfg)
+    if train and cache is not None:
+        raise ValueError("train=True is a pass without a cache (loss_fn)")
+    # each layer is one checkpointed call when remat is on: its activations
+    # are recomputed in the backward pass instead of kept
+    run = (lambda fn, *a: checkpoint(fn, *a, use_reentrant=False)) if train and cfg.remat else \
+        (lambda fn, *a: fn(*a))
     dt = cfg.tdtype
     x = params["embed"][tokens].to(dt) if tokens is not None else embeds.to(dt)
     if cfg.arch_type == "vlm" and embeds is not None and tokens is not None:
@@ -365,12 +407,12 @@ def forward(params: dict, cfg, tokens: torch.Tensor | None, *, mode: str = "full
         else:
             enc = enc_embeds.to(dt)
             enc_pos = torch.arange(enc.shape[1], dtype=torch.int32, device=dev)
-            for i in range(cfg.n_enc_layers):
-                enc, _ = _attn_mlp_block(_layer(params["enc_blocks"], i), cfg, enc, enc_pos, None, None)
+            for layer in _unstack(params["enc_blocks"]):
+                enc, _ = run(_attn_mlp_block, layer, cfg, enc, enc_pos, None, None)
             enc = rms_norm(enc, params["enc_ln"], cfg.norm_eps)
             xattn = params["blocks"]["xattn"]
-            enc_kv = tuple(torch.stack([(enc @ xattn[w][i]).reshape(B, -1, cfg.n_kv_heads, cfg.hd)
-                                        for i in range(cfg.n_layers)]) for w in ("wk", "wv"))
+            enc_kv = tuple(torch.stack([(enc @ wi).reshape(B, -1, cfg.n_kv_heads, cfg.hd)
+                                        for wi in xattn[w].unbind(0)]) for w in ("wk", "wv"))
 
     has_attn = cfg.arch_type != "ssm"
     if cache is None:
@@ -440,18 +482,16 @@ def forward(params: dict, cfg, tokens: torch.Tensor | None, *, mode: str = "full
         for i, (pl, moe) in enumerate(_layers(params, cfg)):
             layer_cache = None if cache is None else (cache["attn"]["k"][i], cache["attn"]["v"][i], slots, page_tbl)
             ekv = None if enc_kv is None else (enc_kv[0][i], enc_kv[1][i])
-            x, aux = _attn_mlp_block(pl, cfg, x, positions, mask_full, layer_cache, owner, moe, ekv)
+            x, aux = run(_attn_mlp_block, pl, cfg, x, positions, mask_full, layer_cache, owner, moe, ekv, train)
             if aux is not None:
                 aux_total = aux_total + aux
         if cache is not None and enc_embeds is not None and cfg.arch_type == "encdec":
             new_cache["cross_k"], new_cache["cross_v"] = enc_kv
     elif cfg.arch_type == "ssm":
         states, convs = [], []
-        for i in range(cfg.n_layers):
-            pl = _layer(params["blocks"], i)
+        for i, layer in enumerate(_unstack(params["blocks"])):
             lc = None if cache is None else {"state": cache["state"][i], "conv": cache["conv"][i]}
-            y, nc = ssm_apply(pl["ssm"], cfg, rms_norm(x, pl["ln"], cfg.norm_eps), lc)
-            x = x + y
+            x, nc = run(_ssm_block, layer, cfg, x, lc)
             states.append(nc["state"])
             convs.append(nc["conv"])
         if cache is not None:
@@ -459,25 +499,25 @@ def forward(params: dict, cfg, tokens: torch.Tensor | None, *, mode: str = "full
     else:  # hybrid: (rec, rec, local-attn) groups, then the recurrent tail
         g = cfg.hybrid_attn_every
         group_states, group_convs = [], []
-        for gi in range(cfg.n_layers // g):
-            pg = _layer(params["blocks"], gi)
+        for gi, pg in enumerate(_unstack(params["blocks"])):
             states, convs = [], []
             for i in range(g - 1):
                 lc = None if cache is None else {"state": cache["rec_state"][gi, i], "conv": cache["rec_conv"][gi, i]}
-                x, nc = _rec_block(pg[f"rec{i}"], cfg, x, lc)
+                x, nc = run(_rec_block, pg[f"rec{i}"], cfg, x, lc)
                 states.append(nc["state"])
                 convs.append(nc["conv"])
             layer_cache = None if cache is None else (cache["attn"]["k"][gi], cache["attn"]["v"][gi], slots, page_tbl)
-            x, _ = _attn_mlp_block(pg["attn"], cfg, x, positions, mask_local, layer_cache)
+            x, _ = run(_attn_mlp_block, pg["attn"], cfg, x, positions, mask_local, layer_cache, None, False,
+                       None, train)
             group_states.append(torch.stack(states))
             group_convs.append(torch.stack(convs))
         if cache is not None:
             new_cache.update(rec_state=torch.stack(group_states), rec_conv=torch.stack(group_convs))
         if "tail" in params:
             states, convs = [], []
-            for i in range(cfg.n_layers % g):
+            for i, layer in enumerate(_unstack(params["tail"])):
                 lc = None if cache is None else {"state": cache["tail_state"][i], "conv": cache["tail_conv"][i]}
-                x, nc = _rec_block(_layer(params["tail"], i), cfg, x, lc)
+                x, nc = run(_rec_block, layer, cfg, x, lc)
                 states.append(nc["state"])
                 convs.append(nc["conv"])
             if cache is not None:
@@ -538,3 +578,54 @@ def init_cache(cfg, batch: int, smax: int, device, per_stream: bool = False,
         cache["tail_state"] = torch.zeros((rem, batch, dl), dtype=torch.float32, device=device)
         cache["tail_conv"] = torch.zeros((rem, batch, 3, dl), dtype=dt, device=device)
     return cache
+
+
+# --------------------------------------------------------------- training ----
+
+
+def loss_fn(params: dict, cfg, tokens: torch.Tensor, labels: torch.Tensor,
+            embeds: torch.Tensor | None = None, enc_embeds: torch.Tensor | None = None) -> torch.Tensor:
+    """Next-token cross-entropy (+ the MoE aux loss x ``router_aux_weight``)
+    of a training pass; labels < 0 are masked.  A VLM's logits over its
+    prepended patches are left out."""
+    logits, _, extras = forward(params, cfg, tokens, mode="full", embeds=embeds, enc_embeds=enc_embeds,
+                                train=True)
+    if cfg.arch_type == "vlm" and embeds is not None:
+        logits = logits[:, embeds.shape[1]:]
+    lp = torch.log_softmax(logits, dim=-1)
+    mask = labels >= 0
+    ll = lp.gather(-1, labels.clamp_min(0).long()[..., None])[..., 0]
+    ce = -(ll * mask).sum() / mask.sum().clamp_min(1)
+    return ce + cfg.router_aux_weight * extras["aux"]
+
+
+def loss_and_grads(params: dict, cfg, batch: dict):
+    """(loss, grads): ``jax.value_and_grad(loss_fn)`` over every parameter,
+    by ``torch.autograd.grad``.  A parameter the pass does not reach gets
+    zeros, as ``jax.grad`` gives.  ``batch`` holds ``tokens`` and ``labels``
+    and, per family, ``embeds`` or ``enc_embeds``, as tensors on the
+    parameters' device.  ``params`` are not modified."""
+    live = _map(lambda t: t.detach().requires_grad_(), params)
+    leaves = _leaves(live)
+    with torch.enable_grad():
+        loss = loss_fn(live, cfg, batch["tokens"], batch["labels"], embeds=batch.get("embeds"),
+                       enc_embeds=batch.get("enc_embeds"))
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    by_leaf = {id(t): torch.zeros_like(t) if g is None else g for t, g in zip(leaves, grads)}
+    del grads
+    return loss.detach(), _map(lambda t: by_leaf.pop(id(t)), live)
+
+
+def make_train_step(cfg, optimizer):
+    """``train_step(params, opt_state, batch) -> (params, opt_state, loss)``:
+    ``loss_and_grads``, then ``optimizer.update_`` (training/optim.py), which
+    writes the new values into ``params`` and ``opt_state`` in place: JAX's
+    step is functional, but two copies of float32 moments would not fit a
+    card beside a full-width layer's parameters and gradients."""
+
+    def train_step(params, opt_state, batch):
+        loss, grads = loss_and_grads(params, cfg, batch)
+        params, opt_state = optimizer.update_(grads, opt_state, params)
+        return params, opt_state, loss
+
+    return train_step

@@ -9,6 +9,14 @@ divide the moments before the square root (torch folds them into the step
 size and the denominator).  Scalars are float32 tensors on the parameters'
 device, as in the JAX package, so no step waits on the host.  The state
 mirrors the params; the step count is a host int.
+
+Dtypes follow JAX's promotion, which torch's differs from: in JAX the
+float32 clip scale is a strongly typed array, so ``g * scale`` lifts bf16
+gradients to float32 and the moments are float32 from the first update on
+(with bf16 moments, ``b2 * v`` at b2 = 0.999 rounds back to ``v``: the
+second moment would never decay).  A 0-dim torch tensor does not promote,
+so each leaf is widened explicitly.  ``init`` allocates the moments in
+that dtype at once (zeros either way, so the values are JAX's).
 """
 from __future__ import annotations
 
@@ -49,9 +57,13 @@ class AdamW:
     warmup_steps: int = 0
     total_steps: int | None = None  # enables cosine decay when set
 
+    def moment_dtype(self, p: torch.Tensor) -> torch.dtype:
+        """The dtype JAX's moments of ``p`` take: that of ``g * scale``."""
+        return torch.promote_types(p.dtype, torch.float32) if self.clip_norm is not None else p.dtype
+
     def init(self, params) -> AdamWState:
-        zeros = lambda p: tree_map(torch.zeros_like, p)
-        return AdamWState(step=0, mu=zeros(params), nu=zeros(params))
+        zeros = lambda p: torch.zeros_like(p, dtype=self.moment_dtype(p))
+        return AdamWState(step=0, mu=tree_map(zeros, params), nu=tree_map(zeros, params))
 
     def schedule(self, step: int, device) -> torch.Tensor:
         """The learning rate at ``step`` as a float32 scalar tensor."""
@@ -67,26 +79,42 @@ class AdamW:
 
     @torch.no_grad()
     def update(self, grads, state: AdamWState, params):
-        """One step; returns (new params, new state).  Gradients and params
-        are not modified."""
+        """One step; returns (new params, new state).  Gradients, params and
+        state are not modified: ``update_`` on copies."""
+        clone = lambda t: tree_map(torch.clone, t)
+        return self.update_(grads, AdamWState(state.step, clone(state.mu), clone(state.nu)), clone(params))
+
+    @torch.no_grad()
+    def update_(self, grads, state: AdamWState, params):
+        """The same step written into ``params`` and the moments in place,
+        leaf by leaf (torch.optim's idiom; the values are JAX's functional
+        update's).  So the card holds one copy of the moments and no
+        whole-tree temporaries.  Returns (params, new state)."""
         step = state.step + 1
         device = tree_leaves(params)[0].device
         f32 = lambda x: torch.tensor(x, dtype=torch.float32, device=device)
+        scale = None
         if self.clip_norm is not None:
             sq = [torch.sum(torch.square(g.float())) for g in tree_leaves(grads)]
             gnorm = torch.sqrt(sum(sq[1:], sq[0]))
             scale = torch.clamp_max(f32(self.clip_norm) / torch.clamp_min(gnorm, 1e-9), 1.0)
-            grads = tree_map(lambda g: g * scale, grads)
-        mu = tree_map(lambda m, g: self.b1 * m + (1 - self.b1) * g, state.mu, grads)
-        nu = tree_map(lambda v, g: self.b2 * v + (1 - self.b2) * torch.square(g), state.nu, grads)
         bc1 = 1 - torch.pow(f32(self.b1), f32(step))
         bc2 = 1 - torch.pow(f32(self.b2), f32(step))
         lr = self.schedule(step, device)
-
-        def upd(p, m, v):
-            mhat = m / bc1
-            vhat = v / bc2
-            return (p - lr * (mhat / (torch.sqrt(vhat) + self.eps) + self.weight_decay * p)).to(p.dtype)
-
-        new_params = tree_map(upd, params, mu, nu)
-        return new_params, AdamWState(step=step, mu=mu, nu=nu)
+        for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads), tree_leaves(state.mu),
+                              tree_leaves(state.nu)):
+            if m.dtype != self.moment_dtype(p) or v.dtype != m.dtype:
+                raise ValueError(f"moments of {m.dtype}/{v.dtype} for a {p.dtype} parameter: take them from init")
+            if scale is not None:
+                g = g.to(torch.promote_types(g.dtype, scale.dtype)) * scale
+            m.mul_(self.b1).add_((1 - self.b1) * g)
+            v.mul_(self.b2).add_((1 - self.b2) * torch.square(g))
+            del g
+            # p - lr * (m / bc1 / (sqrt(v / bc2) + eps) + wd * p), in the dtype JAX's float32 scalars give
+            wide = torch.promote_types(torch.promote_types(p.dtype, m.dtype), torch.float32)
+            den = (v.to(wide) / bc2).sqrt_().add_(self.eps)
+            u = (m.to(wide) / bc1).div_(den)
+            del den
+            u.add_(self.weight_decay * p).mul_(lr)
+            p.copy_(u.neg_().add_(p))
+        return params, AdamWState(step=step, mu=state.mu, nu=state.nu)

@@ -21,6 +21,7 @@ import math
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # smoke-size ops gain nothing from more; parallel test workers share the cores
 
 import jax.numpy as jnp
 import numpy as np

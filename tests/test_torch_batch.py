@@ -15,6 +15,7 @@ Same weights (bridged from JAX), same prompts and per-stream seeds, float32:
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # smoke-size ops gain nothing from more; parallel test workers share the cores
 
 import jax
 import numpy as np
@@ -34,6 +35,12 @@ V = 32
 PROMPTS = [[5, 1, 7, 2], [9, 4], [3, 8, 8, 1, 6], [2, 2, 7], [11, 0, 4]]
 SEEDS = [20, 21, 22, 23, 24]
 MAX_NEW = [10, 6, 12, 4, 8]
+
+
+# the JAX engines of this module share one jit cache: every compiled function
+# is keyed by its config and shapes, so a case reuses what an earlier case
+# compiled instead of recompiling it
+JAX_JIT: dict = {}
 
 
 def _pair(**kw):
@@ -91,6 +98,7 @@ def _both(models, verifier, prompts=PROMPTS, max_new=MAX_NEW, seeds=SEEDS, actio
     (jt, jtp, jd, jdp), (tt, ttp, td, tdp) = models
     engs = [mod.BatchedSpeculativeEngine(*args, emod.EngineConfig(verifier, *action, max_cache=64), **kw)
             for mod, emod, args in ((jbe, jeng, (jt, jtp, jd, jdp)), (tbe, teng, (tt, ttp, td, tdp)))]
+    engs[0]._jit_cache = JAX_JIT
     rids = [[e.submit(list(p), max_new=m, seed=s) for p, m, s in zip(prompts, max_new, seeds)] for e in engs]
     while engs[0].queue or engs[0].streams:
         for e in engs:

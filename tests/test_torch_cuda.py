@@ -791,3 +791,82 @@ def test_train_selector_step_on_the_card_matches_the_cpu(cuda, no_tf32, monkeypa
         settled = g.abs() >= 1e-6
         assert diff[settled].max().item() <= 1e-5 if settled.any() else True
         assert diff.max().item() <= 2 * lr
+
+
+def _to_cuda(tree, device):
+    return {k: _to_cuda(v, device) if isinstance(v, dict) else v.to(device) for k, v in tree.items()}
+
+
+@pytest.mark.cuda
+def test_every_wrapper_refuses_a_tensor_that_requires_grad(cuda):
+    """The hand-written kernels have no backward: each wrapper raises on a
+    CUDA tensor that requires grad while grad mode is on, and launches
+    nothing (no detach, no plain fallback)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.commit_kv import commit_kv
+    from repro_torch.kernels.decode_attention import decode_attention, paged_decode_attention
+    from repro_torch.kernels.paged_tree_attention import paged_tree_attention, ragged_paged_tree_attention
+
+    def g(*shape):
+        return torch.randn(*shape, device=cuda).requires_grad_()
+
+    tbl = torch.zeros(1, 2, dtype=torch.int32, device=cuda)
+    mask = torch.ones(1, 2, 16, dtype=torch.bool, device=cuda)
+    calls = {
+        "tree_attention": (tree_attention, lambda: ops.gqa_tree_attention(g(1, 2, 4, 64), g(1, 16, 1, 64),
+                                                                          g(1, 16, 1, 64), mask)),
+        "paged_tree_attention": (paged_tree_attention, lambda: ops.gqa_paged_tree_attention(
+            g(1, 2, 4, 64), g(3, 8, 1, 64), g(3, 8, 1, 64), tbl, mask)),
+        "ragged_paged_tree_attention": (ragged_paged_tree_attention, lambda: ops.gqa_ragged_tree_attention(
+            g(2, 4, 64), g(3, 8, 1, 64), g(3, 8, 1, 64), tbl, torch.zeros(2, dtype=torch.int32, device=cuda),
+            mask[0])),
+        "commit_kv": (commit_kv, lambda: ops.pool_commit_kv(
+            g(1, 1, 16, 1, 64), g(1, 1, 16, 1, 64), *(torch.zeros(1, 2, dtype=torch.int32, device=cuda),) * 2)),
+        "decode_attention": (decode_attention, lambda: ops.gqa_decode_attention(
+            g(1, 1, 4, 64), g(1, 16, 1, 64), g(1, 16, 1, 64), torch.full((1,), 16, dtype=torch.int32, device=cuda))),
+        "paged_decode_attention": (paged_decode_attention, lambda: ops.gqa_paged_decode_attention(
+            g(1, 1, 4, 64), g(3, 8, 1, 64), g(3, 8, 1, 64), tbl, torch.full((1,), 16, dtype=torch.int32,
+                                                                            device=cuda))),
+    }
+    for name, (kernel, call) in calls.items():
+        before = kernel.launches
+        with pytest.raises(RuntimeError, match="no backward"):
+            call()
+        assert kernel.launches == before, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["granite-3-2b", "qwen3-moe-235b-a22b", "recurrentgemma-2b"])
+def test_train_forward_on_the_card_launches_no_kernel_and_matches_the_cpu(cuda, no_tf32, arch):
+    """``forward(..., train=True)`` on the card takes the plain attention:
+    no hand-written kernel launches, and the gradients of ``loss_and_grads``
+    equal the CPU's (float32, within 1e-4 of each leaf's largest |value|)."""
+    import numpy as np
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.kernels.commit_kv import commit_kv
+    from repro_torch.kernels.decode_attention import decode_attention, paged_decode_attention
+    from repro_torch.kernels.paged_tree_attention import paged_tree_attention, ragged_paged_tree_attention
+    from repro_torch.models.transformer import forward, init_params, loss_and_grads
+    from repro_torch.training.optim import tree_leaves, tree_map
+
+    kernels = (tree_attention, paged_tree_attention, ragged_paged_tree_attention, commit_kv, decode_attention,
+               paged_decode_attention)
+    cfg = get_smoke(arch).replace(dtype="float32")
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    toks = np.random.default_rng(0).integers(0, cfg.vocab, (2, 17))
+    batch = {"tokens": torch.as_tensor(toks[:, :-1]), "labels": torch.as_tensor(toks[:, 1:])}
+    before = [k.launches for k in kernels]
+    loss_c, grads_c = loss_and_grads(_to_cuda(params, cuda), cfg, _to_cuda(batch, cuda))
+    torch.cuda.synchronize()
+    assert [k.launches for k in kernels] == before
+    loss_h, grads_h = loss_and_grads(params, cfg, batch)
+    assert abs(loss_c.item() - loss_h.item()) <= 1e-5 * abs(loss_h.item())
+    for a, b in zip(tree_leaves(grads_c), tree_leaves(grads_h)):
+        assert a.device.type == "cuda"
+        assert (a.cpu() - b).abs().max().item() <= 1e-4 * b.abs().max().item()
+    # without train=True the same pass on parameters that require grad is refused by the kernels
+    live = tree_map(lambda t: t.requires_grad_(), _to_cuda(params, cuda))
+    if cfg.arch_type != "ssm":
+        with pytest.raises(RuntimeError, match="no backward"):
+            forward(live, cfg, batch["tokens"].to(cuda))

@@ -13,6 +13,7 @@ dense wrapper averages it over its zero-padded S instead).
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # smoke-size ops gain nothing from more; parallel test workers share the cores
 
 import jax.numpy as jnp
 import ml_dtypes

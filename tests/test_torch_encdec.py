@@ -29,6 +29,7 @@ import re
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # smoke-size ops gain nothing from more; parallel test workers share the cores
 
 import jax
 import jax.numpy as jnp

@@ -18,6 +18,7 @@ from pathlib import Path
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # smoke-size ops gain nothing from more; parallel test workers share the cores
 
 import jax
 import numpy as np
@@ -56,6 +57,9 @@ def models():
     return (jt, jtp, jd, jdp), (tt, to_t(jtp), td, to_t(jdp))
 
 
+JAX_JIT: dict = {}  # the JAX engines' shared jit cache (test_engine_token_identity)
+
+
 @pytest.mark.parametrize("verifier,K,L1,L2,temperature,top_p", [
     ("specinfer", 2, 1, 2, 0.8, 0.9),
     ("traversal", 2, 2, 1, 1.0, 1.0),
@@ -68,6 +72,8 @@ def test_engine_token_identity(models, verifier, K, L1, L2, temperature, top_p):
     for mod, args in ((jeng, (jt, jtp, jd, jdp)), (teng, (tt, ttp, td, tdp))):
         ecfg = mod.EngineConfig(verifier=verifier, K=K, L1=L1, L2=L2, max_cache=64, seed=3)
         eng = mod.SpeculativeEngine(*args, ecfg, mod.SamplingParams(**sampling))
+        if mod is jeng:  # one jit cache for the cases: compiled functions are keyed by config and shapes
+            eng._jit_cache = JAX_JIT
         toks = [eng.generate([5, 1, 7, 2], max_new=10), eng.generate([9, 4, 3, 8], max_new=8)]
         outs.append((toks, dict(eng.counters)))
     assert outs[1] == outs[0]

@@ -9,6 +9,7 @@ holds it at the main path's shapes).
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # smoke-size ops gain nothing from more; parallel test workers share the cores
 
 import jax.numpy as jnp
 import numpy as np

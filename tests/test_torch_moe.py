@@ -2,8 +2,9 @@
 
 Same weights (bridged from JAX), same inputs made with numpy:
 
-  * ``moe_apply`` (dropless routing, gates, combine and the aux loss) to
-    atol 1e-5, at the qwen3-moe and llama4-maverick smoke sizes;
+  * ``moe_apply`` (dropless routing, gates, combine and the aux loss, and
+    training's capacity-factor dispatch) to atol 1e-5, at the qwen3-moe and
+    llama4-maverick smoke sizes;
   * the bridge keeps the router float32 in a bf16 model, and the port's own
     ``init_params`` draws the JAX tree (flat and interleaved nesting);
   * ``forward`` logits, hidden state, aux and the whole cache to atol 1e-4 in
@@ -21,6 +22,7 @@ import dataclasses
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # smoke-size ops gain nothing from more; parallel test workers share the cores
 
 import jax
 import jax.numpy as jnp
@@ -75,8 +77,11 @@ def test_moe_apply_matches_jax(arch):
     ty, taux = tmoe.moe_apply(tp, to_torch_cfg(jcfg), _t(x))
     np.testing.assert_allclose(ty.numpy(), np.asarray(jy), atol=ATOL_MOE, rtol=0)
     np.testing.assert_allclose(taux.item(), float(jaux), atol=ATOL_MOE, rtol=0)
-    with pytest.raises(NotImplementedError, match="queue 1 item 13"):
-        tmoe.moe_apply(tp, to_torch_cfg(jcfg), _t(x), train=True)
+    # training's capacity-factor dispatch (its drops: tests/test_torch_training.py)
+    jy, jaux = jmoe.moe_apply(jp, jcfg, jnp.asarray(x), train=True)
+    ty, taux = tmoe.moe_apply(tp, to_torch_cfg(jcfg), _t(x), train=True)
+    np.testing.assert_allclose(ty.numpy(), np.asarray(jy), atol=ATOL_MOE, rtol=0)
+    np.testing.assert_allclose(taux.item(), float(jaux), atol=ATOL_MOE, rtol=0)
 
 
 def test_bridge_and_init_keep_the_router_float32():

@@ -16,6 +16,7 @@ import dataclasses
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # smoke-size ops gain nothing from more; parallel test workers share the cores
 
 import jax
 import numpy as np
@@ -62,12 +63,17 @@ def pairs():
     return out
 
 
+JAX_JIT: dict = {}  # the JAX single-stream engines' shared jit cache
+
+
 @pytest.mark.parametrize("verifier", ["specinfer", "traversal"])
 def test_engine_token_identity(pairs, verifier):
     outs = []
     for mod, args in zip((jeng, teng), pairs["flat"]):
         ecfg = mod.EngineConfig(verifier=verifier, K=2, L1=1, L2=2, max_cache=64, seed=3)
         eng = mod.SpeculativeEngine(*args, ecfg, mod.SamplingParams(0.8, 0.9))
+        if mod is jeng:  # one jit cache for the cases: compiled functions are keyed by config and shapes
+            eng._jit_cache = JAX_JIT
         toks = eng.generate([5, 1, 7, 2], max_new=8)
         outs.append((toks, dict(eng.counters)))
     assert outs[1] == outs[0]

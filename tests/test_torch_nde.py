@@ -15,6 +15,7 @@ float32:
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # smoke-size ops gain nothing from more; parallel test workers share the cores
 
 import jax
 import numpy as np
@@ -94,9 +95,17 @@ def neural():
     return make, sampling
 
 
+# one jit cache for this module's JAX single-stream engines and one for its
+# batched ones: every compiled function is keyed by its config and shapes, so
+# an engine reuses what an earlier one compiled instead of recompiling it
+JAX_JIT = {"single": {}, "batched": {}}
+
+
 def _single(mod, args, selector, sampling, seed, prompt, max_new):
     eng = mod.SpeculativeEngine(*args, mod.EngineConfig("specinfer", max_cache=64, seed=seed),
                                 mod.SamplingParams(*sampling), selector=selector)
+    if mod is jeng:
+        eng._jit_cache = JAX_JIT["single"]
     return eng.generate(list(prompt), max_new=max_new), eng
 
 
@@ -116,6 +125,8 @@ def _batched(mod, emod, args, selector, sampling, pipeline, **kw):
     eng = mod.BatchedSpeculativeEngine(*args, emod.EngineConfig("specinfer", max_cache=64),
                                        emod.SamplingParams(*sampling), selector=selector, n_slots=2,
                                        block_size=8, pipeline=pipeline, **kw)
+    if mod is jbe:
+        eng._jit_cache = JAX_JIT["batched"]
     rids = [eng.submit(list(p), max_new=m, seed=s) for p, m, s in zip(PROMPTS, MAX_NEW, SEEDS)]
     out = eng.run()
     return [out[r]["tokens"] for r in rids], eng
@@ -180,6 +191,8 @@ def test_analytic_selector_batched_matches_jax(models):
         rec = Recording(_analytic(pkg), key=lambda st: st["rid"])
         eng = mod.BatchedSpeculativeEngine(*args, emod.EngineConfig("specinfer", max_cache=64), selector=rec,
                                            n_slots=2, block_size=8)
+        if mod is jbe:
+            eng._jit_cache = JAX_JIT["batched"]
         out.append((eng.generate_batch([[1, 2, 3], [4, 5]], max_new=6, seeds=[1, 2]), rec.calls))
     assert out[1] == out[0]
     assert all(len(t) == 6 for t in out[1][0])

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # smoke-size ops gain nothing from more; parallel test workers share the cores
 
 import jax
 
