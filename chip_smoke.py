@@ -45,7 +45,11 @@
    shapes too (FAMILY_CASES): whisper-medium's tree pass (16/16 heads of
    64, G 1), internvl2-26b's (48/8 heads of 128, G 6: 126 score rows a
    tile, the last m16 tile part filled) and its 263-row prefill of 256
-   patches + 7 tokens (13 query tiles).
+   patches + 7 tokens (13 query tiles).  And examples/serve_speculative.py's
+   heads (EXAMPLE_HEADS: the target's 6/2 of 32, the draft's 2/1 of 48,
+   which phase 10d serves) through kernels 1-3: prefill, tree pass, draft
+   decode and branch step, padded, trunk and ragged passes, and the long
+   rows' split path at each head_dim.
 3. The main path at full width: granite-8b (36 layers, bf16) with its
    make_draft_cfg draft, random weights drawn on the card from seeded
    generators, served by SpeculativeEngine with specinfer at
@@ -157,14 +161,23 @@
    (c) A train step of every smoke config in float32, the card against
    the CPU: the loss within 1e-4 relative, each gradient leaf within 1e-3
    of its own largest |value| (the recurrent scans' and the capacity
-   dispatch's backward on CUDA).  (d) Stand-ins for examples/
-   serve_speculative.py's 4-layer target and 1-layer draft (V 256,
-   float32; the target's heads regrouped as 3/1 of 64 over the same
-   widths, the draft's 2/1 widened to head_dim 64, since the tree kernels
-   compile no 32 or 48: the port cannot serve the example's own models) trained 120 steps each, then 4 requests of 48
-   tokens through SpeculativeEngine (specinfer, (2, 2, 2)), launch counts exact, block
-   efficiency reported.
-11. Prints the kernels' JSON line, then the card's line, then as the last
+   dispatch's backward on CUDA).  (d) examples/serve_speculative.py's own
+   4-layer target (d 192, 6/2 heads of 32) and 1-layer draft (d 96, 2/1
+   heads of 48), V 256, float32, trained 120 steps each, then 4 requests
+   of 48 tokens through SpeculativeEngine (specinfer, (2, 2, 2)) on the
+   tree kernel's head_dim-32 and -48 instances, launch counts exact,
+   block efficiency reported.
+11. The dry run (launch/dryrun.py): every config x every shape of
+   launch/shapes.py on fake tensors in 8 worker processes, one line an
+   entry (the step run, its FLOPs counted and its peak of live bytes
+   tracked); launch/dryrun.py's H100_BYTES against the card's
+   total_memory; a real granite-8b build (bf16, a cache of 8 rows x 4096
+   slots) against the dry run's resident_bytes of the same shape, within
+   0.1 % + 1 MiB; and the dry run's peak_bytes beside
+   max_memory_allocated of one real decode step there (kernel 1 at every
+   layer, launches exact) and of one granite-3-2b train step of 1 x 1024
+   tokens (no kernel), reported as ratios.
+12. Prints the kernels' JSON line, then the card's line, then as the last
    line {"ok": true, "device": {...}}.  With ``--json-dir DIR`` it also
    writes the per-shape kernel table and a summary there as JSON.
 
@@ -176,6 +189,7 @@ import argparse
 import collections
 import contextlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -319,11 +333,12 @@ def phase_environment(torch):
     return smi
 
 
-def _case_inputs(torch, name, dtype, gen, heads=None):
+def _case_inputs(torch, name, dtype, gen, heads=None, D=128):
     """(q, k, v, mask) at one of the main path's shapes, with masks made by
     the port's own cache functions and unwritten ring lanes left at zero.
-    ``heads`` = (H, Hkv) replaces the granite pair's heads (the MoE pair's).
-    The "long" cases take a LONG_S-slot ring (the split path)."""
+    ``heads`` = (H, Hkv) replaces the granite pair's heads (the MoE pair's,
+    or at head_dim ``D`` the example's).  The "long" cases take a
+    LONG_S-slot ring (the split path)."""
     import numpy as np
 
     from repro_torch.core.trees import tree_ancestor_mask
@@ -336,10 +351,10 @@ def _case_inputs(torch, name, dtype, gen, heads=None):
         return heads or (H, Hkv)
 
     def ring(B, Hkv, filled):
-        k = torch.zeros(B, S, Hkv, 128, device=dev)
-        v = torch.zeros(B, S, Hkv, 128, device=dev)
-        k[:, :filled] = torch.randn(B, filled, Hkv, 128, generator=gen, device=dev)
-        v[:, :filled] = torch.randn(B, filled, Hkv, 128, generator=gen, device=dev)
+        k = torch.zeros(B, S, Hkv, D, device=dev)
+        v = torch.zeros(B, S, Hkv, D, device=dev)
+        k[:, :filled] = torch.randn(B, filled, Hkv, D, generator=gen, device=dev)
+        v[:, :filled] = torch.randn(B, filled, Hkv, D, generator=gen, device=dev)
         return k, v
 
     def pos_after(length, T):
@@ -391,9 +406,9 @@ def _case_inputs(torch, name, dtype, gen, heads=None):
         (B, T), (H, Hkv) = (2, 7), hk(32, 8)
         mask = torch.rand(B, T, S, generator=gen, device=dev) < 0.5
         mask[1, 3] = False
-        k = torch.randn(B, S, Hkv, 128, generator=gen, device=dev)
-        v = torch.randn(B, S, Hkv, 128, generator=gen, device=dev)
-    q = torch.randn(B, T, H, 128, generator=gen, device=dev)
+        k = torch.randn(B, S, Hkv, D, generator=gen, device=dev)
+        v = torch.randn(B, S, Hkv, D, generator=gen, device=dev)
+    q = torch.randn(B, T, H, D, generator=gen, device=dev)
     return q.to(dtype), k.to(dtype), v.to(dtype), mask.contiguous()
 
 
@@ -413,6 +428,29 @@ def _moe_heads(case):
     return MOE_HEADS["target" if "target" in case else "draft"]
 
 
+# examples/serve_speculative.py's heads (H, Hkv, head_dim): its target's 6/2 of 32, its
+# draft's 2/1 of 48 (phase 10d serves them); phase 2 holds kernels 1-3 at both, the split
+# path included.  (case, role): the draft's heads also take the long (2, 2, 2) pass
+EXAMPLE_HEADS = {"target": (6, 2, 32), "draft": (2, 1, 48)}
+EXAMPLE_CASES = [("target prefill", "target"), ("target tree pass", "target"), ("long target tree pass", "target"),
+                 ("draft decode", "draft"), ("draft branch step", "draft"), ("long target tree pass", "draft")]
+EXAMPLE_PAGED_CASES = [("paged target tree pass", "target"), ("long paged target tree pass", "target"),
+                       ("draft trunk", "draft"), ("long paged target tree pass", "draft")]
+EXAMPLE_RAGGED_CASES = [(3, "target", False), (8, "target", True), (3, "draft", False), (8, "draft", True)]
+
+
+def _example(role):
+    """(H, Hkv), head_dim and the case label's suffix of the example's ``role`` heads."""
+    H, Hkv, D = EXAMPLE_HEADS[role]
+    return (H, Hkv), D, f", example {role} heads (D {D})"
+
+
+def _tree_cases():
+    """(case, (H, Hkv) or None, head_dim, label) of phase 2's dense tree rows."""
+    return ([(c, None, 128, c) for c in CASES] + [(c, _moe_heads(c), 128, f"{c}, qwen3-moe heads") for c in MOE_CASES]
+            + [(c, *_example(r)[:2], c + _example(r)[2]) for c, r in EXAMPLE_CASES])
+
+
 def phase_kernels(torch):
     log("== phase 2: each kernel against its plain version on the card")
     import torch.nn.functional as F
@@ -428,10 +466,8 @@ def phase_kernels(torch):
     rows = [{"kernel": "null kernel (ColdTimer floor)", "case": "torch.cuda._sleep(0)", "ms": floor_ms}]
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).replace("torch.", "")
-        for case, heads in [(c, None) for c in CASES] + [(c, _moe_heads(c)) for c in MOE_CASES]:
-            q, k, v, mask = _case_inputs(torch, case, dtype, gen, heads)
-            if heads is not None:
-                case = f"{case}, qwen3-moe heads"
+        for name, heads, D, case in _tree_cases():
+            q, k, v, mask = _case_inputs(torch, name, dtype, gen, heads, D)
             out = tree_attention(q, k, v, mask)
             torch.cuda.synchronize()
             ref = tree_attention_ref(q, k, v, mask)
@@ -476,15 +512,15 @@ RAGGED_CASES = [3, 8]  # owners of (2, 2, 2) trees in one flat buffer (and 8 on 
 BLOCK, NB = 64, 16
 
 
-def _paged_pool(torch, gen, dtype, B, Hkv, lengths, T, nb=NB):
+def _paged_pool(torch, gen, dtype, B, Hkv, lengths, T, nb=NB, D=128):
     """A random arena (trash block included), tables mapping each row's
     blocks up to length + T (distinct ids), and per-row pos tables holding
     the committed positions."""
     import numpy as np
 
     nblk = B * nb + 1
-    k = torch.empty(nblk, BLOCK, Hkv, 128, device="cuda", dtype=dtype).normal_(generator=gen)
-    v = torch.empty(nblk, BLOCK, Hkv, 128, device="cuda", dtype=dtype).normal_(generator=gen)
+    k = torch.empty(nblk, BLOCK, Hkv, D, device="cuda", dtype=dtype).normal_(generator=gen)
+    v = torch.empty(nblk, BLOCK, Hkv, D, device="cuda", dtype=dtype).normal_(generator=gen)
     ids = (torch.randperm(nblk - 1, generator=gen, device="cuda") + 1).reshape(B, nb).cpu().numpy()
     tbl = np.full((B, nb), -1, np.int32)
     pos = np.full((B, nb * BLOCK), -1, np.int32)
@@ -495,10 +531,10 @@ def _paged_pool(torch, gen, dtype, B, Hkv, lengths, T, nb=NB):
     return k, v, torch.as_tensor(tbl, device="cuda"), torch.as_tensor(pos, device="cuda")
 
 
-def _paged_case_inputs(torch, name, dtype, gen, heads=None):
+def _paged_case_inputs(torch, name, dtype, gen, heads=None, D=128):
     """(q, k_arena, v_arena, tbl, mask) of the padded paged pass at one of the
     batched path's shapes, masks made by the port's own cache functions;
-    ``heads`` = (H, Hkv) replaces the granite pair's."""
+    ``heads`` = (H, Hkv) replaces the granite pair's (head_dim ``D``)."""
     from repro_torch.models.cache import attn_mask_from_pos, cache_slots, tree_mask_from_pos
     from repro_torch.serving.serve_step import device_ancestor_mask
 
@@ -513,7 +549,7 @@ def _paged_case_inputs(torch, name, dtype, gen, heads=None):
         T = {"draft ingest Dp=1": 1, "draft ingest Dp=2": 2, "draft trunk": 1}[name]
         H, Hkv = 16, 4
     H, Hkv = heads or (H, Hkv)
-    k, v, tbl, pos = _paged_pool(torch, gen, dtype, B, Hkv, lengths, T, nb)
+    k, v, tbl, pos = _paged_pool(torch, gen, dtype, B, Hkv, lengths, T, nb, D)
     length = torch.tensor(lengths, dtype=torch.int32, device="cuda")
     slots = cache_slots(length, T, S)
     bidx = torch.arange(B, device="cuda")[:, None]
@@ -533,11 +569,11 @@ def _paged_case_inputs(torch, name, dtype, gen, heads=None):
         mask = torch.rand(B, T, S, generator=gen, device="cuda") < 0.05
         mask[:, :, BLOCK:] &= (torch.arange(B, device="cuda") == 0)[:, None, None]
         mask[2, 3] = False
-    q = torch.randn(B, T, H, 128, generator=gen, device="cuda").to(dtype)
+    q = torch.randn(B, T, H, D, generator=gen, device="cuda").to(dtype)
     return q, k, v, tbl, mask.contiguous()
 
 
-def _ragged_case_inputs(torch, owners, dtype, gen, heads=(32, 8), long=False):
+def _ragged_case_inputs(torch, owners, dtype, gen, heads=(32, 8), long=False, D=128):
     """(q, k_arena, v_arena, tbl, owner, mask) of the ragged pass: ``owners``
     (2, 2, 2) trees of 7 nodes packed back to back into Npad (a power of two)
     lanes, padding lanes as forward passes them to the kernel (owner -1).
@@ -552,7 +588,7 @@ def _ragged_case_inputs(torch, owners, dtype, gen, heads=(32, 8), long=False):
     S = nb * BLOCK
     lengths = [(LONG_COMMITTED + 97 * b) if long else (40 + 9 * b) for b in range(B)]
     H, Hkv = heads
-    k, v, tbl, pos = _paged_pool(torch, gen, dtype, B, Hkv, lengths, 7, nb)
+    k, v, tbl, pos = _paged_pool(torch, gen, dtype, B, Hkv, lengths, 7, nb, D)
     n = 7 * owners
     npad = next_pow2(n)
     parent1, depth1 = np.array([-1, 0, 1, 2, 2, 3, 4]), np.array([0, 1, 2, 3, 3, 4, 4])
@@ -573,7 +609,7 @@ def _ragged_case_inputs(torch, owners, dtype, gen, heads=(32, 8), long=False):
     real = local_t >= 0
     pos[owner_t.long()[real], slots.long()[real]] = q_pos[real]
     mask = ragged_tree_mask(pos, q_pos, owner_t, slots, parent_t)
-    q = torch.randn(npad, H, 128, generator=gen, device="cuda").to(dtype)
+    q = torch.randn(npad, H, D, generator=gen, device="cuda").to(dtype)
     return q, k, v, tbl, torch.where(real, owner_t, -1), mask.contiguous()
 
 
@@ -722,10 +758,11 @@ def paged_kernel_rows(torch, dtype, gen, timer):
             f"bound {bound[0]:.5f} ms ({bound[1]})" + _log_wrapper(wrapper))
         _log_control(control, dname)
 
-    for case, heads in [(c, None) for c in PAGED_CASES] + [(c, _moe_heads(c)) for c in MOE_PAGED_CASES]:
-        q, k, v, tbl, mask = _paged_case_inputs(torch, case, dtype, gen, heads)
-        if heads is not None:
-            case = f"{case}, qwen3-moe heads"
+    paged_cases = ([(c, None, 128, c) for c in PAGED_CASES]
+                   + [(c, _moe_heads(c), 128, f"{c}, qwen3-moe heads") for c in MOE_PAGED_CASES]
+                   + [(c, *_example(r)[:2], c + _example(r)[2]) for c, r in EXAMPLE_PAGED_CASES])
+    for name, heads, D, case in paged_cases:
+        q, k, v, tbl, mask = _paged_case_inputs(torch, name, dtype, gen, heads, D)
         out = paged_tree_attention(q, k, v, tbl, mask)
         torch.cuda.synchronize()
         want = paged_tree_attention_ref(q, k, v, tbl, mask)
@@ -754,11 +791,12 @@ def paged_kernel_rows(torch, dtype, gen, timer):
         del k, v
         torch.cuda.empty_cache()
 
-    for owners, heads, long in [(n, (32, 8), False) for n in RAGGED_CASES] + [(8, MOE_HEADS["target"], False),
-                                                                               (8, (32, 8), True)]:
-        case = (f"ragged target pass, {owners} owners" + ("" if heads == (32, 8) else ", qwen3-moe heads")
-                + (f", {LONG_NB}-block rows" if long else ""))
-        q, k, v, tbl, owner, mask = _ragged_case_inputs(torch, owners, dtype, gen, heads, long)
+    ragged_cases = ([(n, (32, 8), False, 128, "") for n in RAGGED_CASES]
+                    + [(8, MOE_HEADS["target"], False, 128, ", qwen3-moe heads"), (8, (32, 8), True, 128, "")]
+                    + [(n, _example(r)[0], long, *_example(r)[1:]) for n, r, long in EXAMPLE_RAGGED_CASES])
+    for owners, heads, long, D, heads_label in ragged_cases:
+        case = f"ragged target pass, {owners} owners{heads_label}" + (f", {LONG_NB}-block rows" if long else "")
+        q, k, v, tbl, owner, mask = _ragged_case_inputs(torch, owners, dtype, gen, heads, long, D)
         out = ragged_paged_tree_attention(q, k, v, tbl, owner, mask)
         torch.cuda.synchronize()
         want = ragged_tree_attention_ref(q, k, v, tbl, owner, mask)
@@ -3127,19 +3165,14 @@ def phase_train_reference(torch):
 
 
 def phase_train_then_serve(torch):
-    """10d: stand-ins for examples/serve_speculative.py's models on the
-    card: its 4-layer d 192 target and 1-layer d 96 draft at V 256,
-    float32, trained EXAMPLE_STEPS steps each on SyntheticLM(256, seed 3)
-    (no kernel launched), then 4 requests of 48 tokens through
-    SpeculativeEngine, specinfer at (2, 2, 2), temperature 0.9, launch
-    counts exact.  Returns (results, launches).
-
-    The example's heads (the target's 6/2 of 32, the draft's 2/1 of 48)
-    have no instance of the tree kernels (head_dim 64, 128 and 256 are
-    compiled; ROADMAP queue 2 item F).  So the target's same q and kv
-    widths are grouped as 3/1 heads of 64 (every weight keeps its shape)
-    and the draft's 2/1 heads take head_dim 64 (its q and kv widths 128
-    and 64 over d 96)."""
+    """10d: examples/serve_speculative.py's own models on the card: its
+    4-layer d 192 target (6/2 heads of 32) and 1-layer d 96 draft (2/1
+    heads of 48) at V 256, float32, trained EXAMPLE_STEPS steps each on
+    SyntheticLM(256, seed 3) (no kernel launched), then 4 requests of 48
+    tokens through SpeculativeEngine, specinfer at (2, 2, 2), temperature
+    0.9, max_cache 512: every masked pass goes through the tree kernel's
+    head_dim-32 and -48 instances, launch counts exact.  Returns (results,
+    launches)."""
     import gc
 
     import numpy as np
@@ -3150,11 +3183,11 @@ def phase_train_then_serve(torch):
     from repro_torch.training.loop import train
 
     t_phase = time.perf_counter()
-    log("== phase 10d: stand-ins for examples/serve_speculative.py's models (heads at head_dim 64: the port "
-        "cannot serve its heads of 32 and 48) on the card: train a target and a draft, then serve them")
-    tcfg = ModelConfig(name="target", n_layers=4, d_model=192, n_heads=3, n_kv_heads=1, d_ff=384,
+    log("== phase 10d: examples/serve_speculative.py's own models (target 6/2 heads of 32, draft 2/1 heads "
+        "of 48) on the card: train a target and a draft, then serve them")
+    tcfg = ModelConfig(name="target", n_layers=4, d_model=192, n_heads=6, n_kv_heads=2, d_ff=384,
                        vocab=EXAMPLE_V, dtype="float32")
-    dcfg = ModelConfig(name="draft", n_layers=1, d_model=96, n_heads=2, n_kv_heads=1, head_dim=64, d_ff=192,
+    dcfg = ModelConfig(name="draft", n_layers=1, d_model=96, n_heads=2, n_kv_heads=1, d_ff=192,
                        vocab=EXAMPLE_V, dtype="float32")
     lm = SyntheticLM(EXAMPLE_V, seed=3)
     res = {}
@@ -3189,6 +3222,144 @@ def phase_train_then_serve(torch):
         f"{4 + c['draft_calls']})")
     res["seconds"] = time.perf_counter() - t_phase
     log(f"  phase 10d took {res['seconds']:.1f} s")
+    return res, launches
+
+
+# ---------------------------------------------------------------- phase 11: the dry run ---
+
+# the dry run's worker processes: each (arch x shape) entry is host-bound Python on fake tensors
+DRY_JOBS = 8
+# the real builds phase 11 holds the dry run's bytes against: granite-8b serving 8 rows of a
+# 4096-slot cache (bf16), and one granite-3-2b train step of 1 x 1024 tokens
+DRY_DECODE = {"seq": 4096, "batch": 8, "kind": "decode"}
+DRY_TRAIN = {"seq": 1024, "batch": 1, "kind": "train"}
+DRY_TOLERANCE_RULE = "|memory_allocated increase - resident_bytes| <= 0.1 % of resident_bytes + 1 MiB"
+
+
+def _real_bytes(torch, build):
+    """(what ``build()`` returns, the increase of torch.cuda.memory_allocated()
+    it left)."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    out = build()
+    torch.cuda.synchronize()
+    return out, torch.cuda.memory_allocated() - before
+
+
+def _real_peak(torch, step):
+    """torch.cuda.max_memory_allocated() over one ``step()``."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated()
+
+
+def phase_dry_run(torch):
+    """11: launch/dryrun.py on every config x every shape (each step run on
+    fake tensors, its FLOPs counted and its peak tracked; DRY_JOBS worker
+    processes), one line an entry; then the bytes held on the card: a
+    real granite-8b build (bf16 weights, a DRY_DECODE cache) against the
+    dry run's resident_bytes of the same shape (DRY_TOLERANCE_RULE), the
+    dry run's peak_bytes beside max_memory_allocated of one real decode
+    step there (kernel 1 at every layer, launches exact) and of one real
+    granite-3-2b train step of DRY_TRAIN (no kernel), reported, not gated.
+    Returns (results, tree_attention launches)."""
+    import gc
+
+    from repro_torch.configs import get_config, list_arches
+    from repro_torch.launch.dryrun import H100_BYTES, _line, dry_run_one, dry_run_table
+    from repro_torch.launch.shapes import SHAPES
+    from repro_torch.models.transformer import forward, init_cache, init_params, make_train_step
+    from repro_torch.training.optim import AdamW
+
+    t_phase = time.perf_counter()
+    jobs = min(DRY_JOBS, os.cpu_count() or 1)
+    log(f"== phase 11: the dry run (launch/dryrun.py, every step run, {jobs} processes), then its bytes against "
+        "real builds on the card")
+    total = torch.cuda.get_device_properties(0).total_memory
+    log(f"  torch.cuda.get_device_properties(0).total_memory {total}; launch/dryrun.py's H100_BYTES {H100_BYTES}")
+    if torch.cuda.get_device_name(0) == "NVIDIA H100 80GB HBM3" and total != H100_BYTES:
+        raise RuntimeError(f"11: H100_BYTES {H100_BYTES} is not this card's total_memory {total}")
+    entries = [(arch, shape, True) for arch in list_arches() for shape in SHAPES]
+    # the recurrent families' prefill and train steps run their scans in Python (40-100 s each,
+    # the rest 2-35 s): they start first, so the processes finish together
+    order = sorted(range(len(entries)), key=lambda i: (get_config(entries[i][0]).arch_type not in ("ssm", "hybrid")
+                                                      or SHAPES[entries[i][1]]["kind"] == "decode"))
+    done = dict(zip(order, dry_run_table([entries[i] for i in order], jobs)))
+    table, failed = [], []
+    for i in range(len(entries)):
+        status, r = done[i]
+        log("  " + _line(status, r))
+        (table if status == "OK" else failed).append(r)
+    if failed:
+        raise RuntimeError(f"11: {len(failed)} dry runs failed: {[(r['arch'], r['shape']) for r in failed]}")
+    res = {"table": table, "table_seconds": time.perf_counter() - t_phase, "jobs": jobs}
+    log(f"  {len(table)} dry runs in {res['table_seconds']:.1f} s")
+
+    cfg = get_config("granite-8b")
+    dry = dry_run_one("granite-8b", DRY_DECODE)
+    B, S = DRY_DECODE["batch"], DRY_DECODE["seq"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    (params, cache, tokens), real = _real_bytes(torch, lambda: (
+        init_params(cfg, torch.Generator(device="cuda").manual_seed(0)), init_cache(cfg, B, S, "cuda"),
+        torch.randint(0, cfg.vocab, (B, 1), dtype=torch.int32, device="cuda",
+                      generator=torch.Generator(device="cuda").manual_seed(1))))
+    diff = real - dry["resident_bytes"]
+    limit = 1e-3 * dry["resident_bytes"] + 2**20
+    log(f"  granite-8b decode {B} x {S}: memory_allocated increase {real} bytes, dry run resident_bytes "
+        f"{dry['resident_bytes']} (params {dry['param_bytes']}, cache {dry['cache_bytes']}, inputs "
+        f"{dry['input_bytes']}): difference {diff} bytes (limit {limit:.0f}: {DRY_TOLERANCE_RULE})")
+    if abs(diff) > limit:
+        raise RuntimeError(f"11: the dry run's resident bytes {dry['resident_bytes']} disagree with the card's "
+                           f"{real} ({DRY_TOLERANCE_RULE})")
+    base = torch.cuda.memory_allocated() - real
+    counters = _zero_launches()
+    peak = _real_peak(torch, lambda: forward(params, cfg, tokens, mode="decode", cache=cache)) - base
+    launches = counters["tree_attention"].launches
+    if launches != cfg.n_layers or any(fn.launches for name, fn in counters.items() if name != "tree_attention"):
+        raise RuntimeError(f"11: one decode step launched {({n: f.launches for n, f in counters.items()})}, "
+                           f"expected tree_attention x {cfg.n_layers}")
+    res["decode"] = {"shape": DRY_DECODE, "resident_bytes": dry["resident_bytes"], "memory_allocated_increase": real,
+                     "difference": diff, "limit": limit, "peak_bytes": dry["peak_bytes"],
+                     "max_memory_allocated": peak, "peak_ratio": dry["peak_bytes"] / peak,
+                     "flops_counted": dry["flops_counted"], "launches": launches}
+    log(f"  one real decode step ({launches} tree_attention launches): max_memory_allocated {peak} bytes, dry run "
+        f"peak_bytes {dry['peak_bytes']} (plain attention): ratio {res['decode']['peak_ratio']:.4f}")
+    del params, cache, tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = get_config("granite-3-2b")
+    dry = dry_run_one("granite-3-2b", DRY_TRAIN)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    opt = AdamW(lr=1e-4)
+
+    def build():
+        params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+        toks = torch.randint(0, cfg.vocab, (DRY_TRAIN["batch"], DRY_TRAIN["seq"]), dtype=torch.int32,
+                             device="cuda", generator=gen)
+        return params, opt.init(params), {"tokens": toks, "labels": toks.roll(-1, dims=1)}
+
+    (params, state, batch), real = _real_bytes(torch, build)
+    base = torch.cuda.memory_allocated() - real
+    step = make_train_step(cfg, opt)
+    counters = _zero_launches()
+    peak = _real_peak(torch, lambda: step(params, state, batch)) - base
+    _no_launches(counters, "11 train step")
+    res["train"] = {"shape": DRY_TRAIN, "resident_bytes": dry["resident_bytes"], "memory_allocated_increase": real,
+                    "peak_bytes": dry["peak_bytes"], "max_memory_allocated": peak,
+                    "peak_ratio": dry["peak_bytes"] / peak, "flops_counted": dry["flops_counted"]}
+    log(f"  granite-3-2b train step {DRY_TRAIN['batch']} x {DRY_TRAIN['seq']}: memory_allocated increase {real} "
+        f"bytes, dry run resident_bytes {dry['resident_bytes']} (params {dry['param_bytes']}, AdamW "
+        f"{dry['opt_bytes']}); max_memory_allocated {peak} bytes, dry run peak_bytes {dry['peak_bytes']}: ratio "
+        f"{res['train']['peak_ratio']:.4f} (no kernel launched)")
+    del params, state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 11 took {res['seconds']:.1f} s")
     return res, launches
 
 
@@ -3251,10 +3422,12 @@ def main():
     training["d"], train_serve_launches = phase_train_then_serve(torch)
     training["seconds"] = time.perf_counter() - t10
     log(f"  phase 10 took {training['seconds']:.1f} s")
+    dry_run, dry_run_launches = phase_dry_run(torch)
 
     # each kernel's launches over every main-path run (phases 3, 5, 6, 7, 8c, 8e, 9a/9b and 10d single
-    # stream, 9c's card passes, both runs of phases 4, 5, 6e, 7, 8a and 8e, 8b's; phase 10's training
-    # launches none); its times at the hottest shape of its path, in bf16
+    # stream, 9c's card passes, both runs of phases 4, 5, 6e, 7, 8a and 8e, 8b's, phase 11's real
+    # decode step; phase 10's training and phase 11's train step launch none); its times at the
+    # hottest shape of its path, in bf16
     runs = [batched["pipelined"]["launches"], batched["sync"]["launches"],
             moe["pipelined"]["launches"], moe["sync"]["launches"], *nde_batched_runs, *rec_batched_runs,
             phase8["a"]["pipelined"]["launches"], phase8["a"]["sync"]["launches"], phase8["b"]["launches"],
@@ -3262,7 +3435,7 @@ def main():
     total = {name: sum(r[name] for r in runs) for name in runs[0]}
     total["tree_attention"] += (launches + moe_launches + nde_single_launches + rec_single_launches
                                 + phase8["c_launches"] + f32_single_launches + family_launches
-                                + family_ref_launches + train_serve_launches)
+                                + family_ref_launches + train_serve_launches + dry_run_launches)
     headline = {"tree_attention": "target tree pass", "paged_tree_attention": "paged target tree pass",
                 "ragged_paged_tree_attention": "ragged target pass, 8 owners",
                 "commit_kv": "36-layer arena, B*P = 32, chains + trash padding",
@@ -3309,6 +3482,7 @@ def main():
                "batched_draft_card_vs_cpu_rel_err": batched_ref_err, "moe": moe,
                "moe_draft_card_vs_cpu_rel_err": moe_ref_err, "nde": nde, "recurrent": recurrent, "phase8": phase8,
                "families": families, "family_drafts_card_vs_cpu_rel_err": family_ref_err, "training": training,
+               "dry_run": dry_run,
                "nvidia_smi": smi,
                "seconds": time.perf_counter() - t_start}
     if args.json_dir:

@@ -87,9 +87,13 @@ int paged_tree_attention_launch(const void* q, const void* k, const void* v, con
   if (dtype == 0 && D == 256) return launch<float, 256>(p, st);
   if (dtype == 0 && D == 128) return launch<float, 128>(p, st);
   if (dtype == 0 && D == 64) return launch<float, 64>(p, st);
+  if (dtype == 0 && D == 48) return launch<float, 48>(p, st);
+  if (dtype == 0 && D == 32) return launch<float, 32>(p, st);
   if (dtype == 1 && D == 256) return launch<__nv_bfloat16, 256>(p, st);
   if (dtype == 1 && D == 128) return launch<__nv_bfloat16, 128>(p, st);
   if (dtype == 1 && D == 64) return launch<__nv_bfloat16, 64>(p, st);
+  if (dtype == 1 && D == 48) return launch<__nv_bfloat16, 48>(p, st);
+  if (dtype == 1 && D == 32) return launch<__nv_bfloat16, 32>(p, st);
   return cudaErrorInvalidValue;
 }
 

@@ -62,6 +62,9 @@
 //     slots; chosen from the shapes, never from the mask).  Each split writes fp32
 //     partials (m, l, acc) and the combine kernel (one CTA per (row, head)) merges
 //     them; at S <= 4096 a call is one launch;
+//   * head_dim 32 and 48 (examples/serve_speculative.py's target and draft): the bf16
+//     instances take D / 16 k-steps, the last one alone through ldmatrix.x2 when D / 16
+//     is odd; the fp32 lanes own ceil(D / 32) output dims, those at or past D masked;
 //   * head_dim 256 (RecurrentGemma's local attention) doubles every per-row buffer, so
 //     its instances hold at most 64 score rows a CTA (max_rows; the wrapper's schedule
 //     follows), stage 2 chunks a stage in bf16 (2 teams at most), and keep the bf16
@@ -125,6 +128,12 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t& r0, uint32_t& r1, uint32_t
                                             const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x2(uint32_t& r0, uint32_t& r1, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r0), "=r"(r1)
                : "r"(smem_addr(p)));
 }
 
@@ -280,11 +289,13 @@ struct Rows {
 // the warp's tile in the m16n8 accumulator layout.
 template <int D>
 struct MmaWarp {
-  static constexpr int NK = D / 16;  // k-steps over D
+  static constexpr int NK = D / 16;  // k-steps over D (odd at D 48: the last one alone)
   static constexpr int ND = D / 8;   // n-tiles over D
   static constexpr int KS = D + 8;   // staged row, elements
   // the query fragments in shared memory (NK x 32 lanes x 16 bytes a tile) at D > 128
   static constexpr bool kQShared = D > 128;
+  static_assert(D % 16 == 0 && ND % 2 == 0, "k-steps of 16 and pairs of n-tiles");
+  static_assert(!kQShared || NK % 2 == 0, "shared query fragments are read in pairs of k-steps");
   uint32_t qa[kQShared ? 1 : NK][4];
   const uint4* qs;  // kQShared: this warp tile's fragments
   float o[ND][4];
@@ -377,11 +388,16 @@ struct MmaWarp {
 #pragma unroll
       for (int n = 0; n < 4; ++n) {
 #pragma unroll
-        for (int kk = 0; kk < NK; kk += 2) {
+        for (int kk = 0; kk + 1 < NK; kk += 2) {
           uint32_t b0, b1, b2, b3;
           ldmatrix_x4(b0, b1, b2, b3, ks + (8 * n + (lane & 7)) * KS + 16 * kk + 8 * (lane >> 3));
           mma_bf16(s[n], qa[kk], b0, b1);
           mma_bf16(s[n], qa[kk + 1], b2, b3);
+        }
+        if constexpr (NK % 2) {  // the last k-step alone: 16 columns, lanes 0-15 address
+          uint32_t b0, b1;
+          ldmatrix_x2(b0, b1, ks + (8 * n + (lane & 7)) * KS + 16 * (NK - 1) + 8 * ((lane >> 3) & 1));
+          mma_bf16(s[n], qa[NK - 1], b0, b1);
         }
       }
     }
@@ -549,10 +565,12 @@ struct MmaWarp {
 // fp32: SIMT.  The CTA's score rows are dealt round robin to its 8 warps (row
 // warp + 8 r is the warp's r-th, at most RW: 16, or 8 at D 256), so every warp computes.  Lane j scores
 // key j of the chunk for the warp's rows (queries in shared memory); lane j owns
-// output dims j, j + 32, ...
+// output dims j, j + 32, ... below D (at D 48 lanes 16-31 own one dim, the rest two).
 template <int D>
 struct SimtWarp {
-  static constexpr int PL = D / 32;
+  static constexpr int PL = (D + 31) / 32;  // output dims a lane owns at most
+  // lane owns dim lane + 32 i (always for i < D / 32)
+  static __device__ __forceinline__ bool owns(int i, int lane) { return D % 32 == 0 || lane + 32 * i < D; }
   static constexpr int KS = D + 4;  // staged row, elements
   static constexpr int RW = max_rows(D) / kWarps;  // score rows a warp holds at most
   float acc[RW][PL];
@@ -624,7 +642,7 @@ struct SimtWarp {
     for (int j = 0; j < kKeys; ++j) {
       float vv[PL];
 #pragma unroll
-      for (int i = 0; i < PL; ++i) vv[i] = vs[j * KS + lane + 32 * i];
+      for (int i = 0; i < PL; ++i) vv[i] = owns(i, lane) ? vs[j * KS + lane + 32 * i] : 0.f;
 #pragma unroll
       for (int r = 0; r < RW; ++r) {
         if (r >= nr) break;
@@ -652,7 +670,7 @@ struct SimtWarp {
     for (int j = 0; j < kKeys; ++j) {
       float vv[PL];
 #pragma unroll
-      for (int i = 0; i < PL; ++i) vv[i] = vs[j * KS + lane + 32 * i];
+      for (int i = 0; i < PL; ++i) vv[i] = owns(i, lane) ? vs[j * KS + lane + 32 * i] : 0.f;
 #pragma unroll
       for (int r = 0; r < RW; ++r) {
         if (r >= nr) break;
@@ -681,11 +699,13 @@ struct SimtWarp {
         const float inv = 1.f / fmaxf(l[r], 1e-30f);
         float* out = static_cast<float*>(p.out) + row_hd * D;
 #pragma unroll
-        for (int k = 0; k < PL; ++k) out[lane + 32 * k] = acc[r][k] * inv;
+        for (int k = 0; k < PL; ++k)
+          if (owns(k, lane)) out[lane + 32 * k] = acc[r][k] * inv;
       } else {
         const int64_t part = (int64_t)split * p.R * p.H + row_hd;
 #pragma unroll
-        for (int k = 0; k < PL; ++k) p.part_acc[part * D + lane + 32 * k] = acc[r][k];
+        for (int k = 0; k < PL; ++k)
+          if (owns(k, lane)) p.part_acc[part * D + lane + 32 * k] = acc[r][k];
         if (lane == 0) {
           p.part_ml[2 * part] = m[r];
           p.part_ml[2 * part + 1] = l[r];

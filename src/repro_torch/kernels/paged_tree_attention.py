@@ -24,7 +24,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.tree_attention import launch_schedule, mask_vectorizable, partials
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128, 256)  # the instances compiled in csrc/paged_tree_attention.cu
+_HEAD_DIMS = (32, 48, 64, 128, 256)  # the instances compiled in csrc/paged_tree_attention.cu
 _ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 14 + [ctypes.c_void_p]
 
 

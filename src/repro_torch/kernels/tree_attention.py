@@ -25,7 +25,7 @@ import torch
 from repro_torch.kernels import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128, 256)  # the instances compiled in csrc/tree_attention.cu
+_HEAD_DIMS = (32, 48, 64, 128, 256)  # the instances compiled in csrc/tree_attention.cu
 _ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
 
 MAX_SCORE_ROWS = 128  # query heads x query rows per CTA: 8 warps of one m16 tile (max_score_rows)

@@ -193,6 +193,10 @@ def _jax_dense_ref(q, k, v, mask):
     (10, 1, 1024, 1, 256),     # recurrentgemma-2b's local attention: G 10, head_dim 256
     (10, 1, 4608, 3, 256),     # a ring past the 4096-slot threshold
     (256, 1, 100, 1, 256),     # G past the 64 rows of a D 256 CTA
+    (6, 2, 512, 1, 32),        # examples/serve_speculative.py's target: 6/2 heads of 32, max_cache 512
+    (2, 1, 512, 1, 48),        # its draft: 2/1 heads of 48
+    (6, 2, 8192, 4, 32),       # both past the threshold: the split depends on S alone
+    (2, 1, 8192, 4, 48),
 ])
 def test_launch_schedule_rule(H, Hkv, S, n_split, D):
     tq, gh, split_slots, got = launch_schedule(H, Hkv, S, D)
@@ -237,6 +241,7 @@ def test_ragged_tiles_cut_at_owner_changes(owner, tq):
     (2, 17, 16, 1, 256, 32, 2),  # G 16: tiles of 8 query rows, a mask per row
     (2, 33, 2, 2, 192, 16, 1),   # G 1: tiles of 32 query rows, one mask for B 2
     (1, 14, 10, 1, 128, 256, 1),  # recurrentgemma-2b's heads, head_dim 256: tiles of 6 query rows
+    (2, 7, 2, 1, 128, 48, 2),    # examples/serve_speculative.py's draft heads (2/1 of 48), a mask per row
 ])
 def test_model_matches_tree_attention_oracles(split, kind, B, T, H, Hkv, S, D, Bm):
     rng = np.random.default_rng(T * 10 + H)

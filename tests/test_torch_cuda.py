@@ -56,6 +56,11 @@ def cuda():
     (1, 7, 16, 16, 1024, 64, 1),   # whisper-medium tree pass: MHA, G = 1, D 64
     (1, 7, 48, 8, 1024, 128, 1),   # internvl2-26b tree pass: G = 6, 126 score rows, the last tile part filled
     (1, 263, 48, 8, 1024, 128, 1),  # internvl2-26b prefill: 256 patches + 7 tokens, 13 query tiles
+    (1, 7, 6, 2, 1024, 32, 1),     # examples/serve_speculative.py's target tree pass: 6/2 heads of 32
+    (2, 1, 2, 1, 1024, 48, 1),     # its draft's branch step: 2/1 heads of 48 (3 k-steps, 48 fp32 lanes)
+    (1, 12, 6, 2, 512, 32, 1),     # the example's prefill of a 12-token prompt, 512-slot cache
+    (1, 7, 6, 2, 8192, 32, 1),     # D 32 split path: 4 splits and the combine
+    (2, 7, 2, 1, 8192, 48, 2),     # D 48 split path, a mask per row
 ])
 def test_tree_attention_matches_plain_version(cuda, dtype, B, T, H, Hkv, S, D, Bm):
     gen = torch.Generator(device=cuda).manual_seed(B * 1000 + T)
@@ -111,6 +116,10 @@ def _paged_inputs(cuda, dtype, B, T, H, Hkv, D, block, nb, nblk, seed, unmapped=
     (8, 7, 32, 8, 128, 64, 16, 0),   # padded target tree pass
     (8, 1, 16, 4, 128, 64, 16, 3),   # draft trunk step, unmapped tail blocks
     (3, 5, 8, 2, 64, 16, 5, 2),      # small blocks, ragged chunk edges
+    (8, 7, 6, 2, 32, 64, 8, 0),      # the example target's heads (6/2 of 32), padded tree pass
+    (8, 1, 2, 1, 48, 64, 8, 2),      # the example draft's heads (2/1 of 48), trunk step
+    (2, 7, 6, 2, 32, 64, 80, 3),     # D 32 on 5120-slot rows: the split path
+    (2, 3, 2, 1, 48, 64, 80, 3),     # D 48 on 5120-slot rows: the split path
 ])
 def test_paged_tree_attention_matches_plain_version(cuda, dtype, B, T, H, Hkv, D, block, nb, unmapped):
     from repro_torch.kernels.ops import gqa_paged_tree_attention
@@ -132,7 +141,10 @@ def test_paged_tree_attention_matches_plain_version(cuda, dtype, B, T, H, Hkv, D
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("owners", [[0, 0, 0, 2, 2, 1, 1, 1, 1, 0], list(range(8)) * 8,
                                     [2, 2, 2, 0, 0, 0, 0, -1, -1]])  # padding lanes: zeros
-def test_ragged_paged_tree_attention_matches_plain_version(cuda, dtype, owners):
+@pytest.mark.parametrize("H,Hkv,D", [(32, 8, 128),
+                                     (6, 2, 32),   # examples/serve_speculative.py's target heads
+                                     (2, 1, 48)])  # and its draft's
+def test_ragged_paged_tree_attention_matches_plain_version(cuda, dtype, owners, H, Hkv, D):
     from repro_torch.kernels.ops import gqa_ragged_tree_attention
     from repro_torch.kernels.paged_tree_attention import ragged_paged_tree_attention
     from repro_torch.kernels.ref import ragged_tree_attention_ref
@@ -140,8 +152,8 @@ def test_ragged_paged_tree_attention_matches_plain_version(cuda, dtype, owners):
     B, N, nb, block = max(owners) + 1, len(owners), 16, 64
     gen = torch.Generator(device=cuda).manual_seed(N)
     dt = getattr(torch, dtype)
-    q = torch.randn((N, 32, 128), generator=gen, device=cuda).to(dt)
-    k, v = (torch.randn((B * nb + 1, block, 8, 128), generator=gen, device=cuda).to(dt) for _ in range(2))
+    q = torch.randn((N, H, D), generator=gen, device=cuda).to(dt)
+    k, v = (torch.randn((B * nb + 1, block, Hkv, D), generator=gen, device=cuda).to(dt) for _ in range(2))
     tbl = (torch.randperm(B * nb, generator=gen, device=cuda) + 1).reshape(B, nb).to(torch.int32)
     tbl[:, nb - 2:] = -1  # unmapped tail blocks read the trash block
     owner = torch.tensor(owners, dtype=torch.int32, device=cuda)
@@ -362,16 +374,17 @@ def test_tree_attention_at_mask_edges(cuda, dtype, kind, B, T, H, Hkv, S, D, Bm)
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("H,Hkv", [(32, 8), (64, 4)])
+@pytest.mark.parametrize("H,Hkv,D", [(32, 8, 128), (64, 4, 128),
+                                     (6, 2, 32), (2, 1, 48)])  # examples/serve_speculative.py's heads
 @pytest.mark.parametrize("full_row", [False, True])
-def test_tree_attention_long_cache_splits(cuda, dtype, H, Hkv, full_row):
+def test_tree_attention_long_cache_splits(cuda, dtype, H, Hkv, D, full_row):
     """S = 32768 takes the split path (16 splits of 2048 slots and a
     combine): a (2, 2, 2) target pass after 30000 committed tokens, with or
     without a fully masked row (the combine's mean of V).  Each query row is
     held to TOLERANCE x its own largest |output|."""
     gen = torch.Generator(device=cuda).manual_seed(H)
     dt = getattr(torch, dtype)
-    S, T, D = 32768, 7, 128
+    S, T = 32768, 7
     q = torch.randn((1, T, H, D), generator=gen, device=cuda).to(dt)
     k, v = (torch.randn((1, S, Hkv, D), generator=gen, device=cuda).to(dt) for _ in range(2))
     mask = torch.as_tensor(edge_mask("runs straddling chunk edges", 1, T, S, prefix=30000), device=cuda)
@@ -438,7 +451,9 @@ def test_ragged_paged_tree_attention_owner_runs(cuda, dtype, owners, H, Hkv):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_paged_and_ragged_attention_long_rows_split(cuda, dtype):
+@pytest.mark.parametrize("H,Hkv,D", [(32, 8, 128),
+                                     (6, 2, 32), (2, 1, 48)])  # examples/serve_speculative.py's heads
+def test_paged_and_ragged_attention_long_rows_split(cuda, dtype, H, Hkv, D):
     """Rows of 512 64-slot blocks (32768 slots) take the split path: a
     padded target pass over 2 rows (one with unmapped tail blocks, one
     fully masked row), then the ragged pass over both owners and padding.
@@ -446,7 +461,7 @@ def test_paged_and_ragged_attention_long_rows_split(cuda, dtype):
     from repro_torch.kernels.paged_tree_attention import paged_tree_attention, ragged_paged_tree_attention
     from repro_torch.kernels.ref import paged_tree_attention_ref, ragged_tree_attention_ref
 
-    B, T, H, Hkv, D, block, nb = 2, 7, 32, 8, 128, 64, 512
+    B, T, block, nb = 2, 7, 64, 512
     q, k, v, tbl, _ = _paged_inputs(cuda, dtype, B, T, H, Hkv, D, block, nb, B * nb + 1, seed=3)
     tbl[1, 400:] = -1
     mask = torch.as_tensor(edge_mask("runs straddling chunk edges", B, T, nb * block, prefix=25000), device=cuda)
