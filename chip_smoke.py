@@ -93,8 +93,9 @@
    the single-stream peek at the same prefix (pools unchanged bit for bit).
    Launch counts are checked in every run as in phases 3-5.
 7. The recurrent families on the replay strategy, at full width, after the
-   earlier models are freed: (a) mamba2-2.7b (64 layers, d 2560, 80 SSD
-   heads of 64, state 128) and (b) recurrentgemma-2b (26 layers: 8 groups
+   earlier models are freed: (a) mamba2-2.7b (d 2560, 80 SSD heads of 64,
+   state 128; its 64 layers cut to 32 since PR 22, the draft the full
+   config's) and (b) recurrentgemma-2b (26 layers: 8 groups
    of (rec, rec, local-attn) and a tail of 2 rec layers, 10/1 heads of
    256, window 2048), each with its make_draft_cfg draft: one specinfer
    (2, 2, 2) request of 32 tokens through SpeculativeEngine, then phase
@@ -126,13 +127,14 @@
    target layers and a 1-layer draft in float32: how many of 3 streams the
    batched engine serves as the single-stream one does, and of 12 the
    sharded as the unsharded (reported).
-9. The encoder-decoder and VLM families, each at full width with nothing
-   cut and its make_draft_cfg draft, bf16, one stream, after every
+9. The encoder-decoder and VLM families, each at full width with its
+   make_draft_cfg draft, bf16, one stream, after every
    earlier model is freed: (a) whisper-medium (24 + 24 layers, d 1024,
    16/16 heads of 64, enc_len 1500, vocab 51865; draft 6 + 6 layers at d
    512), each request given seeded frame embeddings (1, 1500, 1024); (b)
-   internvl2-26b (48 layers, d 6144, 48/8 heads of 128, d_ff 16384, vocab
-   92553; draft 12 layers at d 3072, 24/4 heads), each request given 256
+   internvl2-26b (d 6144, 48/8 heads of 128, d_ff 16384, vocab 92553; its
+   48 layers cut to 24 since PR 22; draft 12 layers at d 3072, 24/4 heads,
+   the full config's), each request given 256
    seeded patch embeddings (1, 256, 6144).  Each: phase 3's traffic
    (specinfer on 2 requests, traversal on 1, 8-token prompts, 32 new
    tokens, a 1024-slot ring), launch counts exact (the draft never sees
@@ -177,7 +179,25 @@
    max_memory_allocated of one real decode step there (kernel 1 at every
    layer, launches exact) and of one granite-3-2b train step of 1 x 1024
    tokens (no kernel), reported as ratios.
-12. Prints the kernels' JSON line, then the card's line, then as the last
+   Phase 11's worker processes also run phase 12c's dry runs.
+12. The production meshes (launch/mesh.py, launch/sharding.py,
+   models/act_sharding.py, launch/train.py's make_sharded_train_step):
+   (a) an NCCL process group of one rank made in-process (HashStore) and a
+   1 x 1 ("data", "model") mesh on the card (DTensor replicates
+   everything there: it checks the DTensor path on the card, not a split):
+   granite-3-2b at full width trained 5 steps of 4 x 1024 tokens in bf16
+   from phase 10a's seed and batches, each loss within 1e-3 relative of
+   phase 10a's at the same step, its step time and peak beside phase
+   10a's; then granite-8b at full width cut to 4 layers in float32, 3
+   steps, every leaf within 1e-5 of its largest |value| of the plain
+   step's; no kernel launched.  (b) On a machine with 2 or more cards only:
+   one NCCL rank a card on a (1, n) and an (n, 1) mesh, the same float32
+   check; else it says why it did not run.  (c) On the host, in phase
+   11's worker processes: the dry run of granite-8b train_4k and
+   decode_32k and qwen3-moe train_4k on the 16x16 and 2x16x16 meshes of a
+   fake process group: per-device bytes (held equal to what the specs
+   place), peak, FLOPs and collectives.
+13. Prints the kernels' JSON line, then the card's line, then as the last
    line {"ok": true, "device": {...}}.  With ``--json-dir DIR`` it also
    writes the per-shape kernel table and a summary there as JSON.
 
@@ -2215,6 +2235,9 @@ def phase_nde(torch, smi):
 # ---------------------------------------------- phase 7: the recurrent families ---
 
 RECURRENT_ARCHES = ("mamba2-2.7b", "recurrentgemma-2b")
+# phase 7a's target cut from 64 layers to 32, to keep the script within half its time limit
+# once phase 12 was added (PR 22); its draft is the full config's
+RECURRENT_TARGET_LAYERS = {"mamba2-2.7b": 32}
 LONG_PROMPT, LONG_RING = 2600, 4096  # 7c: a prompt past the 2048-slot window, on a ring that holds it
 
 
@@ -2300,9 +2323,12 @@ def phase_recurrent(torch, then=None):
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        tcfg = get_config(arch)
-        dcfg = make_draft_cfg(tcfg)
-        log(f"== phase 7{'ab'[i]}: {arch} + draft at full width, bf16, replay strategy")
+        full = get_config(arch)
+        tcfg = full.replace(n_layers=RECURRENT_TARGET_LAYERS.get(arch, full.n_layers))
+        dcfg = make_draft_cfg(full)
+        cut = "" if tcfg.n_layers == full.n_layers else \
+            f", the target cut from {full.n_layers} to {tcfg.n_layers} layers"
+        log(f"== phase 7{'ab'[i]}: {arch} + draft at full width{cut}, bf16, replay strategy")
         for role, c in (("target", tcfg), ("draft ", dcfg)):
             log(f"{role} {c.name}: L={c.n_layers} d={c.d_model} " + (
                 f"d_inner={c.d_inner} heads={c.ssm_heads}x{c.ssm_headdim} state={c.ssm_state} "
@@ -2694,6 +2720,9 @@ def phase_float32_match(torch):
 # ------------------------------------------------ phase 9: encoder-decoder, VLM ---
 
 FAMILY_ARCHES = ("whisper-medium", "internvl2-26b")
+# phase 9b's target cut from 48 layers to 24, to keep the script within half its time limit
+# once phase 12 was added (PR 22); its draft is the full config's
+FAMILY_TARGET_LAYERS = {"internvl2-26b": 24}
 # profiler ranges around what the two families run outside any kernel (the plain gqa_attend, as in
 # JAX): the Whisper encoder's layers, and each decoder layer's cross-attention core
 ENCODER_RANGE, CROSS_RANGE = "plain encoder layer", "plain cross-attention"
@@ -2750,7 +2779,7 @@ def _plain_attention_ranges(torch):
 
 
 def phase_families(torch):
-    """9a/9b: whisper-medium and internvl2-26b at full width, nothing cut,
+    """9a/9b: whisper-medium and internvl2-26b at full width (9b's target cut to FAMILY_TARGET_LAYERS),
     each with its make_draft_cfg draft, bf16, through SpeculativeEngine:
     phase 3's traffic, each request given seeded frames (1, 1500, 1024) or
     256 patches (1, 256, 6144), launch counts exact; the prefill's wall,
@@ -2767,9 +2796,12 @@ def phase_families(torch):
     results, total_launches = {}, 0
     for sub, arch in zip("ab", FAMILY_ARCHES):
         t_phase = time.perf_counter()
-        tcfg = get_config(arch)
-        dcfg = make_draft_cfg(tcfg)
-        log(f"== phase 9{sub}: {arch} at full width, nothing cut, + draft, bf16, one stream")
+        full = get_config(arch)
+        tcfg = full.replace(n_layers=FAMILY_TARGET_LAYERS.get(arch, full.n_layers))
+        dcfg = make_draft_cfg(full)
+        cut = "nothing cut" if tcfg.n_layers == full.n_layers else \
+            f"the target cut from {full.n_layers} to {tcfg.n_layers} layers"
+        log(f"== phase 9{sub}: {arch} at full width, {cut}, + draft, bf16, one stream")
         for role, cfg in (("target", tcfg), ("draft ", dcfg)):
             extra = (f" enc_layers={cfg.n_enc_layers} enc_len={cfg.enc_len}" if cfg.arch_type == "encdec"
                      else f" patches={cfg.n_patches}")
@@ -3281,21 +3313,26 @@ def phase_dry_run(torch):
     log(f"  torch.cuda.get_device_properties(0).total_memory {total}; launch/dryrun.py's H100_BYTES {H100_BYTES}")
     if torch.cuda.get_device_name(0) == "NVIDIA H100 80GB HBM3" and total != H100_BYTES:
         raise RuntimeError(f"11: H100_BYTES {H100_BYTES} is not this card's total_memory {total}")
-    entries = [(arch, shape, True) for arch in list_arches() for shape in SHAPES]
-    # the recurrent families' prefill and train steps run their scans in Python (40-100 s each,
-    # the rest 2-35 s): they start first, so the processes finish together
-    order = sorted(range(len(entries)), key=lambda i: (get_config(entries[i][0]).arch_type not in ("ssm", "hybrid")
+    entries = [(arch, shape, True, None) for arch in list_arches() for shape in SHAPES]
+    # phase 12c's entries on the production meshes (40-160 s each) and the recurrent families'
+    # prefill and train steps, which run their scans in Python (40-100 s each; the rest 2-35 s),
+    # start first, so the processes finish together
+    mesh_entries = [(arch, shape, True, multi_pod) for arch, shape in MESH_DRY_RUNS for multi_pod in (False, True)]
+    entries = mesh_entries + entries
+    order = sorted(range(len(entries)), key=lambda i: (entries[i][3] is None, get_config(entries[i][0]).arch_type
+                                                      not in ("ssm", "hybrid")
                                                       or SHAPES[entries[i][1]]["kind"] == "decode"))
     done = dict(zip(order, dry_run_table([entries[i] for i in order], jobs)))
     table, failed = [], []
-    for i in range(len(entries)):
+    for i in range(len(mesh_entries), len(entries)):
         status, r = done[i]
         log("  " + _line(status, r))
         (table if status == "OK" else failed).append(r)
     if failed:
         raise RuntimeError(f"11: {len(failed)} dry runs failed: {[(r['arch'], r['shape']) for r in failed]}")
-    res = {"table": table, "table_seconds": time.perf_counter() - t_phase, "jobs": jobs}
-    log(f"  {len(table)} dry runs in {res['table_seconds']:.1f} s")
+    res = {"table": table, "table_seconds": time.perf_counter() - t_phase, "jobs": jobs,
+           "mesh_runs": [done[i] for i in range(len(mesh_entries))]}
+    log(f"  {len(table)} dry runs (and phase 12c's {len(mesh_entries)}) in {res['table_seconds']:.1f} s")
 
     cfg = get_config("granite-8b")
     dry = dry_run_one("granite-8b", DRY_DECODE)
@@ -3363,6 +3400,201 @@ def phase_dry_run(torch):
     return res, launches
 
 
+# phase 12: the 4-layer float32 cut of granite-8b held against the plain step, its batches and
+# AdamW (eps 1e-3 bounds the step's derivative in a near-zero gradient, as in
+# tests/test_torch_distributed.py), and phase 12c's dry runs
+MESH_TRAIN_STEPS = 5
+MESH_CHECK_LAYERS, MESH_CHECK_BATCH, MESH_CHECK_SEQ, MESH_CHECK_STEPS = 4, 2, 256, 3
+MESH_CHECK_OPT = {"lr": 1e-3, "eps": 1e-3}
+MESH_DRY_RUNS = [("qwen3-moe-235b-a22b", "train_4k"), ("granite-8b", "train_4k"), ("granite-8b", "decode_32k")]
+
+
+def _mesh_check_run(torch, mesh, device):
+    """MESH_CHECK_STEPS float32 steps of granite-8b cut to MESH_CHECK_LAYERS
+    layers from seed 0: the plain step when ``mesh`` is None, else the
+    sharded step over ``mesh``.  Returns ({path: leaf on the CPU}, losses)
+    (gathered whole on every rank of ``mesh``)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.sharding import gather
+    from repro_torch.launch.train import make_sharded_train_step, place_params
+    from repro_torch.models.transformer import init_params, make_train_step
+    from repro_torch.training.loop import to_device
+    from repro_torch.training.optim import AdamW
+
+    cfg = get_config("granite-8b").replace(n_layers=MESH_CHECK_LAYERS, dtype="float32")
+    rng = np.random.default_rng(0)
+    opt = AdamW(**MESH_CHECK_OPT)
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(0))
+    if mesh is not None:
+        params = place_params(mesh, cfg, params)
+    state = opt.init(params)
+    step = make_train_step(cfg, opt) if mesh is None else make_sharded_train_step(cfg, opt, mesh)
+    losses = []
+    for _ in range(MESH_CHECK_STEPS):
+        toks = rng.integers(0, cfg.vocab, (MESH_CHECK_BATCH, MESH_CHECK_SEQ + 1))
+        batch = to_device({"tokens": toks[:, :-1], "labels": toks[:, 1:]}, device)
+        params, state, loss = step(params, state, batch)
+        losses.append(float(loss))
+    whole = gather(params) if mesh is not None else params
+
+    def flat(tree, prefix=""):
+        if isinstance(tree, dict):
+            return {k: v for key in tree for k, v in flat(tree[key], f"{prefix}{key}/").items()}
+        return {prefix[:-1]: tree.detach().cpu()}
+
+    return flat(whole), losses
+
+
+def _mesh_check_errors(torch, got, want) -> float:
+    """The largest leaf difference as a share of that leaf's largest |value|."""
+    if sorted(got) != sorted(want):
+        raise RuntimeError(f"12: the sharded step's leaves {sorted(got)} are not the plain step's")
+    return max(float((got[k] - want[k]).abs().max()) / max(float(want[k].abs().max()), 1e-30) for k in want)
+
+
+def _mesh_rank(rank, n, init_file, shape, out):
+    """One NCCL rank of phase 12b (spawned, one a card)."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    sys.path.insert(0, str(SRC))
+    torch.cuda.set_device(rank)
+    dist.init_process_group("nccl", init_method=f"file://{init_file}", rank=rank, world_size=n)
+    try:
+        mesh = init_device_mesh("cuda", shape, mesh_dim_names=("data", "model"))
+        leaves, losses = _mesh_check_run(torch, mesh, torch.device("cuda", rank))
+        if rank == 0:
+            out.put((leaves, losses))
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_meshes(torch, dense, mesh_runs):
+    """12: the production meshes; ``dense`` is phase 10a's result, and
+    ``mesh_runs`` phase 12c's dry runs from phase 11's worker processes."""
+    import gc
+    import tempfile
+
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import COLLECTIVES, _line
+    from repro_torch.launch.train import make_sharded_train_step, place_params
+    from repro_torch.models.transformer import init_params
+    from repro_torch.training.data import SyntheticLM
+    from repro_torch.training.loop import to_device
+    from repro_torch.training.optim import AdamW
+
+    t_phase = time.perf_counter()
+    res = {}
+    n = torch.cuda.device_count()
+    log(f"== phase 12a: the production-mesh train step (make_sharded_train_step) on an NCCL process group of "
+        f"one rank and a 1 x 1 (data, model) mesh ({n} card(s) on this machine): DTensor replicates everything "
+        "on a 1 x 1 mesh, so this checks the DTensor path on the card, not a multi-rank split")
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+        cfg = get_config(TRAIN_ARCH)
+        it = SyntheticLM(cfg.vocab, seed=0).batches(TRAIN_BATCH, TRAIN_SEQ, seed=0)
+        batches = [next(it) for _ in range(MESH_TRAIN_STEPS)]
+        opt = AdamW(lr=3e-4, total_steps=TRAIN_STEPS, warmup_steps=1)  # phase 10a's schedule
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params = place_params(mesh, cfg, init_params(cfg, torch.Generator(device="cuda").manual_seed(0)))
+        state = opt.init(params)
+        times = []
+        step = _timed(torch, make_sharded_train_step(cfg, opt, mesh), times)
+        counters = _zero_launches()
+        losses = []
+        for b in batches:
+            params, state, loss = step(params, state, to_device(b, "cuda"))
+            losses.append(float(loss))
+        launches = _no_launches(counters, "12a training")
+        peak = torch.cuda.max_memory_allocated()
+        ref = dense["losses"][:MESH_TRAIN_STEPS]
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref)]
+        step_ms = statistics.median(times[1:]) * 1e3
+        res["a"] = {"losses": losses, "phase10a_losses": ref, "loss_rel_err": rel, "step_ms": [t * 1e3 for t in times],
+                    "median_step_ms": step_ms, "phase10a_median_step_ms": dense["median_step_ms"],
+                    "max_memory_allocated": peak, "phase10a_max_memory_allocated": dense["max_memory_allocated"],
+                    "launches": launches}
+        log(f"  {cfg.name} at full width, {MESH_TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ}: losses "
+            + ", ".join(f"{l:.4f}" for l in losses) + " (phase 10a: " + ", ".join(f"{l:.4f}" for l in ref)
+            + f"), largest relative difference {max(rel):.3e}; median step {step_ms:.2f} ms (steps 2-5; first "
+            f"{times[0] * 1e3:.2f} ms) against phase 10a's {dense['median_step_ms']:.2f} ms; peak "
+            f"{peak / 2**30:.3f} GiB against {dense['max_memory_allocated'] / 2**30:.3f}; kernel launches {launches}")
+        if max(rel) > 1e-3:
+            raise RuntimeError(f"12a: the sharded losses {losses} are not within 1e-3 of phase 10a's {ref}")
+        del params, state, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        want, plain_losses = _mesh_check_run(torch, None, "cuda")
+        got, mesh_losses = _mesh_check_run(torch, mesh, "cuda")
+        err = _mesh_check_errors(torch, got, want)
+        res["a"]["float32_check"] = {"layers": MESH_CHECK_LAYERS, "steps": MESH_CHECK_STEPS, "worst_leaf_rel_err": err,
+                                     "losses": mesh_losses, "plain_losses": plain_losses}
+        log(f"  granite-8b at full width cut to {MESH_CHECK_LAYERS} layers, float32, {MESH_CHECK_STEPS} steps of "
+            f"{MESH_CHECK_BATCH} x {MESH_CHECK_SEQ}: worst leaf {err:.3e} of its largest |value| against the plain "
+            f"step (limit 1e-5); losses {mesh_losses} vs {plain_losses}")
+        if err > 1e-5:
+            raise RuntimeError(f"12a: a sharded leaf differs from the plain step's by {err:.3e} of its scale")
+        del got, want
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+    if n >= 2:
+        log(f"== phase 12b: one NCCL rank a card, {n} ranks, on a (1, {n}) and a ({n}, 1) mesh")
+        want, _ = _mesh_check_run(torch, None, "cuda")
+        res["b"] = {}
+        ctx = mp.get_context("spawn")
+        for shape in ((1, n), (n, 1)):
+            with tempfile.TemporaryDirectory() as tmp:
+                out = ctx.Queue()
+                procs = [ctx.Process(target=_mesh_rank, args=(r, n, f"{tmp}/init", shape, out)) for r in range(n)]
+                for p in procs:
+                    p.start()
+                got, _ = out.get(timeout=600)
+                for p in procs:
+                    p.join(timeout=60)
+                if any(p.exitcode != 0 for p in procs):
+                    raise RuntimeError(f"12b: a rank of the {shape} mesh failed: {[p.exitcode for p in procs]}")
+            err = _mesh_check_errors(torch, got, want)
+            res["b"][f"{shape[0]}x{shape[1]}"] = err
+            log(f"  {shape} mesh: worst leaf {err:.3e} of its largest |value| against the plain step (limit 1e-5)")
+            if err > 1e-5:
+                raise RuntimeError(f"12b: on the {shape} mesh a leaf differs by {err:.3e} of its scale")
+    else:
+        res["b"] = None
+        log(f"== phase 12b did not run: it needs a card a rank and this machine has {n}; the (1, n) and (n, 1) "
+            "meshes over several ranks are checked on 4 gloo ranks on the CPU (tests/test_torch_distributed.py)")
+
+    log("== phase 12c: the dry run on the production meshes (run in phase 11's worker processes): per device")
+    res["c"] = []
+    for status, r in mesh_runs:
+        log("  " + _line(status, r))
+        if status != "OK":
+            raise RuntimeError(f"12c: the dry run of {r['arch']} {r['shape']} on {r['mesh']} failed")
+        log(f"    params {r['param_bytes']} + AdamW {r['opt_bytes']} + cache {r['cache_bytes']} + inputs "
+            f"{r['input_bytes']} = resident {r['resident_bytes']} bytes (the specs place {r['placement_bytes']}); "
+            "collectives " + ", ".join(f"{k} {v}" for k, v in r["collectives"].items()))
+        if r["resident_bytes"] != r["placement_bytes"] or set(r["collectives"]) != \
+                set(COLLECTIVES.values()) | {"collective-permute"}:
+            raise RuntimeError(f"12c: {r['arch']} {r['shape']} on {r['mesh']}: resident {r['resident_bytes']} "
+                               f"bytes but the specs place {r['placement_bytes']}")
+        res["c"].append(r)
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 12 took {res['seconds']:.1f} s (12c's dry runs ran in phase 11's table)")
+    return res
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--json-dir", type=Path, help="also write the result tables there as JSON")
@@ -3423,10 +3655,11 @@ def main():
     training["seconds"] = time.perf_counter() - t10
     log(f"  phase 10 took {training['seconds']:.1f} s")
     dry_run, dry_run_launches = phase_dry_run(torch)
+    meshes = phase_meshes(torch, training["a"], dry_run.pop("mesh_runs"))
 
     # each kernel's launches over every main-path run (phases 3, 5, 6, 7, 8c, 8e, 9a/9b and 10d single
     # stream, 9c's card passes, both runs of phases 4, 5, 6e, 7, 8a and 8e, 8b's, phase 11's real
-    # decode step; phase 10's training and phase 11's train step launch none); its times at the
+    # decode step; phase 10's and 12's training and phase 11's train step launch none); its times at the
     # hottest shape of its path, in bf16
     runs = [batched["pipelined"]["launches"], batched["sync"]["launches"],
             moe["pipelined"]["launches"], moe["sync"]["launches"], *nde_batched_runs, *rec_batched_runs,
@@ -3482,7 +3715,7 @@ def main():
                "batched_draft_card_vs_cpu_rel_err": batched_ref_err, "moe": moe,
                "moe_draft_card_vs_cpu_rel_err": moe_ref_err, "nde": nde, "recurrent": recurrent, "phase8": phase8,
                "families": families, "family_drafts_card_vs_cpu_rel_err": family_ref_err, "training": training,
-               "dry_run": dry_run,
+               "dry_run": dry_run, "meshes": meshes,
                "nvidia_smi": smi,
                "seconds": time.perf_counter() - t_start}
     if args.json_dir:

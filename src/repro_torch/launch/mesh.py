@@ -1,14 +1,76 @@
-"""Serving data meshes: where each shard of the sharded engine lives.
+"""Device meshes: the production meshes training shards over, and where each
+shard of the sharded engine lives.
 
-The counterpart of ``shard_meshes`` in src/repro/launch/mesh.py.  torch has
-no mesh object: a shard's "mesh" is the one ``torch.device`` its pool lives
-on.  The production meshes of the JAX module (``make_production_mesh``,
-``data_axes``) shard parameters over a TPU pod; they have no use on one card,
-so training leaves them out (launch/train.py; ROADMAP queue 1 item 8b).
+The counterpart of src/repro/launch/mesh.py.  A mesh is a
+``torch.distributed.device_mesh.DeviceMesh`` over the ranks of the default
+process group (``torchrun``, one rank a card, or a ``fake`` process group for
+the dry run): JAX's ``Mesh`` of devices becomes a mesh of ranks.  Functions,
+so that importing this module touches no process group.  The rules of
+launch/sharding.py need only each axis's name and size, which
+``mesh_axes`` reads from a ``DeviceMesh`` or takes as a dict, as JAX's rules
+take an ``AbstractMesh``.
 """
 from __future__ import annotations
 
+import math
+from collections.abc import Mapping
+
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+
+
+def production_mesh_shape(multi_pod: bool = False) -> dict[str, int]:
+    """The production mesh's axes and sizes: (16, 16) ``("data", "model")``,
+    or (2, 16, 16) ``("pod", "data", "model")``."""
+    return {"pod": 2, "data": 16, "model": 16} if multi_pod else {"data": 16, "model": 16}
+
+
+def _world_size() -> int:
+    return dist.get_world_size() if dist.is_initialized() else 0
+
+
+def make_production_mesh(*, multi_pod: bool = False, device_type: str = "cuda") -> DeviceMesh:
+    """The production mesh over the default process group, which must have
+    256 (or, ``multi_pod``, 512) ranks: JAX's ``make_mesh`` raises likewise
+    without the devices."""
+    axes = production_mesh_shape(multi_pod)
+    need = math.prod(axes.values())
+    if _world_size() != need:
+        raise RuntimeError(
+            f"the {'x'.join(map(str, axes.values()))} production mesh needs a process group of {need} ranks, "
+            f"found world size {_world_size()} (run under torchrun with {need} processes in all)")
+    return init_device_mesh(device_type, tuple(axes.values()), mesh_dim_names=tuple(axes))
+
+
+def mesh_axes(mesh) -> dict[str, int]:
+    """{axis name: size} of a ``DeviceMesh`` (or of such a dict, returned as
+    it is), in mesh-dim order."""
+    if isinstance(mesh, Mapping):
+        return dict(mesh)
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))
+
+
+def data_axes(mesh) -> tuple[str, ...]:
+    """Axes that carry the batch dimension."""
+    return ("pod", "data") if "pod" in mesh_axes(mesh) else ("data",)
+
+
+def axis_size(mesh, name: str) -> int:
+    return mesh_axes(mesh).get(name, 1)
+
+
+def make_data_mesh(n_shards: int, *, device_type: str = "cuda") -> DeviceMesh:
+    """A 1-axis ``("data",)`` mesh over ranks 0..n_shards-1 of the default
+    process group: one pool whose stream axis is ``Shard`` on it is split
+    across those ranks (``launch.sharding.pool_shardings``).  Raises when the
+    group has fewer ranks; ``shard_meshes`` is the host-local form."""
+    if n_shards < 1:
+        raise ValueError(f"need at least one shard, got {n_shards}")
+    if _world_size() < n_shards:
+        raise ValueError(f"a {n_shards}-shard data mesh needs {n_shards} ranks, "
+                         f"the process group has {_world_size()}")
+    return DeviceMesh(device_type, torch.arange(n_shards), mesh_dim_names=("data",))
 
 
 def shard_meshes(n_shards: int, devices=None) -> list[torch.device]:

@@ -17,6 +17,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
+
+from repro_torch.models.act_sharding import split_heads, tensor_parallel
 
 NEG_INF = -1e30
 
@@ -98,8 +101,16 @@ def swiglu_init(cfg, gen: torch.Generator, d_ff: int | None = None) -> dict:
     }
 
 
+def _swiglu(x, w_gate, w_up, w_down, rank=0):
+    return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+
+
 def swiglu(p: dict, x: torch.Tensor) -> torch.Tensor:
-    return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+    if isinstance(x, DTensor):  # over a mesh: column- then row-parallel
+        m = x.device_mesh.size(x.device_mesh.mesh_dim_names.index("model"))
+        return tensor_parallel(_swiglu, x, (p["w_gate"], p["w_up"]), (p["w_down"],),
+                               split=p["w_down"].shape[0] % m == 0)
+    return _swiglu(x, p["w_gate"], p["w_up"], p["w_down"])
 
 
 def project_qkv(p: dict, cfg, x: torch.Tensor):
@@ -110,8 +121,4 @@ def project_qkv(p: dict, cfg, x: torch.Tensor):
     v = x @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    return (
-        q.reshape(B, T, cfg.n_heads, hd),
-        k.reshape(B, T, cfg.n_kv_heads, hd),
-        v.reshape(B, T, cfg.n_kv_heads, hd),
-    )
+    return split_heads(q, cfg.n_heads, hd), split_heads(k, cfg.n_kv_heads, hd), split_heads(v, cfg.n_kv_heads, hd)

@@ -33,7 +33,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
+from repro_torch.models.act_sharding import replicated
 from repro_torch.models.layers import init_dense
 
 
@@ -95,6 +97,15 @@ def route(p: dict, cfg, xf: torch.Tensor):
 
 def moe_apply(p: dict, cfg, x: torch.Tensor, train: bool = False):
     """x (B, S, D) -> (y (B, S, D), aux (scalar fp32 load-balance loss))."""
+    # the routing's index_add_/scatter_ and the dispatch's index_add/index_copy_
+    # have no DTensor sharding rule: a sharded layer runs whole on every rank
+    # (the capacity is the global batch's, as under JAX's partitioner)
+    if isinstance(x, DTensor):
+        return replicated(_moe_apply, p, cfg, x, train)
+    return _moe_apply(p, cfg, x, train)
+
+
+def _moe_apply(p: dict, cfg, x: torch.Tensor, train: bool):
     B, S, D = x.shape
     E, k = cfg.n_experts, cfg.top_k
     N = B * S

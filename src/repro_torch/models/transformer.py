@@ -45,10 +45,15 @@ turns on the MoE capacity-factor dispatch (models/moe.py) and, with
 """
 from __future__ import annotations
 
+from functools import partial
+
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.ops import gqa_paged_tree_attention, gqa_ragged_tree_attention, gqa_tree_attention
+from repro_torch.models.act_sharding import (pin, replicated, ring_attention, rows, rows_gathered, split_heads,
+                                             tensor_parallel)
 from repro_torch.models.cache import (
     append_layer_kv,
     attn_mask_from_pos,
@@ -236,7 +241,9 @@ def _self_attention(p, cfg, x, positions, mask, layer_cache, ragged=None, train=
     attends every key through the plain ``gqa_attend``, as JAX does, and so
     does a training pass (``train``, no cache) under its causal mask."""
     B, T, _ = x.shape
-    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    h = rows(rms_norm(x, p["ln1"], cfg.norm_eps))
+    if isinstance(h, DTensor) and (mask is None or train):
+        return x + _tensor_parallel_attention(p["attn"], cfg, h, positions, mask)
     q, k, v = project_qkv(p["attn"], cfg, h)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
@@ -263,7 +270,10 @@ def _self_attention(p, cfg, x, positions, mask, layer_cache, ragged=None, train=
         att = gqa_tree_attention(q, k, v, m3)
     else:
         kc, vc, slots, page_tbl = layer_cache
-        if page_tbl is None:
+        if page_tbl is None and isinstance(q, DTensor):  # the dry run over a mesh: each rank its rows
+            att = ring_attention(lambda q, k, v, m: gqa_tree_attention(q, k, v, m[:, 0]), append_layer_kv,
+                                 q, k, v, kc, vc, slots, mask)
+        elif page_tbl is None:
             kc, vc = append_layer_kv(kc, vc, k, v, slots)
             att = gqa_tree_attention(q, kc, vc, m3)
         else:
@@ -272,18 +282,54 @@ def _self_attention(p, cfg, x, positions, mask, layer_cache, ragged=None, train=
     return x + att.reshape(B, T, -1) @ p["attn"]["wo"]
 
 
+def _tensor_parallel_attention(pa, cfg, h, positions, mask):
+    """A pass without a cache (training, the encoder) on DTensors: the
+    query heads column-parallel over ``"model"`` where they divide, and the
+    kv heads too where they divide (else each rank projects them whole and
+    keeps the kv head of each of its query heads), ``wo`` row-parallel
+    (act_sharding.tensor_parallel).  Returns the attention's output,
+    before the residual."""
+    mesh = h.device_mesh
+    m = mesh.size(mesh.mesh_dim_names.index("model"))
+    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    split = m > 1 and H % m == 0
+    kv_split = split and Hkv % m == 0
+    bias = lambda *names: [pa[n] for n in names] if cfg.qkv_bias else []
+    qw, kvw = [pa["wq"]] + bias("bq"), [pa["wk"], pa["wv"]] + bias("bk", "bv")
+
+    def attend(hl, *ws):
+        *ws, rank = ws
+        if kv_split:
+            q_w, kv_w, wo = ws[:len(qw)], ws[len(qw):len(qw) + len(kvw)], ws[-1]
+        else:
+            q_w, wo, kv_w = ws[:len(qw)], ws[len(qw)], ws[len(qw) + 1:]
+        b, t, _ = hl.shape
+        proj = lambda w, bb=None: (hl @ w if bb is None else hl @ w + bb).reshape(b, t, -1, hd)
+        q = proj(*q_w)
+        k, v = (proj(kv_w[0], kv_w[2]), proj(kv_w[1], kv_w[3])) if cfg.qkv_bias else (proj(kv_w[0]), proj(kv_w[1]))
+        if split and not kv_split:  # the kv head of each of this rank's query heads
+            pick = (rank * (H // m) + torch.arange(H // m, device=hl.device)) // (H // Hkv)
+            k, v = k[:, :, pick], v[:, :, pick]
+        q, k = rope(q, positions, cfg.rope_theta), rope(k, positions, cfg.rope_theta)
+        return gqa_attend(q, k, v, mask).reshape(b, t, -1) @ wo
+
+    return tensor_parallel(attend, h, qw + (kvw if kv_split else []), [pa["wo"]], [] if kv_split else kvw,
+                           split=split)
+
+
 def _attn_mlp_block(p, cfg, x, positions, mask, layer_cache, ragged=None, moe=False, enc_kv=None,
                     train=False):
     """Returns (x, aux): aux is the MoE layer's load-balance loss, else None.
     enc_kv: None, or the layer's (cross_k, cross_v), each (B, S_enc, Hkv,
     hd): the cross-attention (no rope, no bias, no mask, the plain
     ``gqa_attend``) follows the self-attention."""
+    x = pin(x)
     x = _self_attention(p, cfg, x, positions, mask, layer_cache, ragged, train)
     if enc_kv is not None:
-        B, T, _ = x.shape
         h = rms_norm(x, p["ln_x"], cfg.norm_eps)
-        q = (h @ p["xattn"]["wq"]).reshape(B, T, cfg.n_heads, cfg.hd)
-        x = x + gqa_attend(q, enc_kv[0], enc_kv[1], None).reshape(B, T, -1) @ p["xattn"]["wo"]
+        # on DTensors each rank its rows against the gathered weights: DTensor's own propagation
+        # of these products' backward over a 2 x 16 x 16 mesh strides the flattened (B, T)
+        x = x + rows_gathered(partial(_cross_attention, cfg), (h, *enc_kv), p["xattn"]["wq"], p["xattn"]["wo"])
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
     if moe:
         y, aux = moe_apply(p["mlp"], cfg, h, train)
@@ -291,16 +337,37 @@ def _attn_mlp_block(p, cfg, x, positions, mask, layer_cache, ragged=None, moe=Fa
     return x + swiglu(p["mlp"], h), None
 
 
+def _cross_attention(cfg, h, k, v, wq, wo):
+    B, T, _ = h.shape
+    q = split_heads(h @ wq, cfg.n_heads, cfg.hd)
+    return gqa_attend(q, k, v, None).reshape(B, T, -1) @ wo
+
+
+def _mixer(apply, p, cfg, h, cache):
+    """``apply(p, cfg, h, cache)`` (the SSD or RG-LRU mixer).  On DTensors
+    each rank runs it on its rows (and its rows of the cache) against the
+    gathered weights: the scans are local to a row, DTensor's strategy
+    search for their 4- to 6-D einsums takes minutes a step on a 3-D mesh,
+    and its propagation of the products' backward over a 2 x 16 x 16 mesh
+    strides the flattened (B, T)."""
+    if not isinstance(h, DTensor):
+        return apply(p, cfg, h, cache)
+    names = list(p)
+    return rows_gathered(lambda h, c, *w: apply(dict(zip(names, w)), cfg, h, c), (h, cache), *(p[n] for n in names))
+
+
 def _rec_block(p, cfg, x, cache):
+    x = pin(x)
     h = rms_norm(x, p["ln"], cfg.norm_eps)
-    y, new_cache = rglru_apply(p["rec"], cfg, h, cache)
+    y, new_cache = _mixer(rglru_apply, p["rec"], cfg, h, cache)
     x = x + y
     h = rms_norm(x, p["ln_m"], cfg.norm_eps)
     return x + swiglu(p["mlp"], h), new_cache
 
 
 def _ssm_block(p, cfg, x, cache):
-    y, new_cache = ssm_apply(p["ssm"], cfg, rms_norm(x, p["ln"], cfg.norm_eps), cache)
+    x = pin(x)
+    y, new_cache = _mixer(ssm_apply, p["ssm"], cfg, rms_norm(x, p["ln"], cfg.norm_eps), cache)
     return x + y, new_cache
 
 
@@ -324,6 +391,17 @@ def _mk_masks(cfg, mode, T, pos, positions, anc, slots):
     else:
         m = tree_mask_from_pos(pos, positions, anc, slots, win)
     return (None, m) if hybrid else (m, None)
+
+
+def _write_pos(pos: torch.Tensor, slots: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+    """A copy of the slot->position table ``pos`` ((Smax,), or (B, Smax) per
+    stream) with ``vals`` written at ``slots`` ((T,) or (B, T))."""
+    new_pos = pos.clone()
+    if pos.dim() == 2:
+        new_pos[torch.arange(pos.shape[0], device=pos.device)[:, None], slots.long()] = vals.to(new_pos.dtype)
+    else:
+        new_pos[slots.long()] = vals.to(new_pos.dtype)
+    return new_pos
 
 
 def _tree_depths(anc: torch.Tensor, per_stream: bool = False) -> torch.Tensor:
@@ -394,7 +472,9 @@ def forward(params: dict, cfg, tokens: torch.Tensor | None, *, mode: str = "full
     run = (lambda fn, *a: checkpoint(fn, *a, use_reentrant=False)) if train and cfg.remat else \
         (lambda fn, *a: fn(*a))
     dt = cfg.tdtype
-    x = params["embed"][tokens].to(dt) if tokens is not None else embeds.to(dt)
+    # on DTensors each rank looks up its own rows in the gathered table: torch 2.11's
+    # DTensor rule for the lookup's backward (index_put) fails on an unnormalized dim
+    x = rows_gathered(lambda t, e: e[t].to(dt), tokens, params["embed"]) if tokens is not None else embeds.to(dt)
     if cfg.arch_type == "vlm" and embeds is not None and tokens is not None:
         x = torch.cat([(embeds.to(dt) @ params["patch_proj"]).to(dt), x], dim=1)
     B, T, _ = x.shape
@@ -411,7 +491,7 @@ def forward(params: dict, cfg, tokens: torch.Tensor | None, *, mode: str = "full
                 enc, _ = run(_attn_mlp_block, layer, cfg, enc, enc_pos, None, None)
             enc = rms_norm(enc, params["enc_ln"], cfg.norm_eps)
             xattn = params["blocks"]["xattn"]
-            enc_kv = tuple(torch.stack([(enc @ wi).reshape(B, -1, cfg.n_kv_heads, cfg.hd)
+            enc_kv = tuple(torch.stack([split_heads(enc @ wi, cfg.n_kv_heads, cfg.hd)
                                         for wi in xattn[w].unbind(0)]) for w in ("wk", "wv"))
 
     has_attn = cfg.arch_type != "ssm"
@@ -462,12 +542,9 @@ def forward(params: dict, cfg, tokens: torch.Tensor | None, *, mode: str = "full
             if lens is not None:
                 valid = torch.arange(T, device=dev)[None, :] < lens[:, None]
                 pos_vals = torch.where(valid, positions, -1)
-            new_pos = a["pos"].clone()
-            if per_stream:
-                bidx = torch.arange(B, device=dev)[:, None]
-                new_pos[bidx, slots.long()] = pos_vals.to(new_pos.dtype)
-            else:
-                new_pos[slots.long()] = pos_vals.to(new_pos.dtype)
+            # on DTensors (the dry run over a mesh) on every rank whole: torch 2.11's
+            # DTensor has no rule for index_put_
+            new_pos = replicated(_write_pos, a["pos"], slots, pos_vals)
             new_len = length + (T if lens is None else lens)
             mask_full, mask_local = _mk_masks(cfg, mode, T, new_pos, positions, anc, slots)
         new_attn = {"k": a["k"], "v": a["v"], "pos": new_pos, "len": new_len.to(torch.int32)}
@@ -525,9 +602,11 @@ def forward(params: dict, cfg, tokens: torch.Tensor | None, *, mode: str = "full
     if cache is not None and cfg.arch_type in RECURRENT:
         new_cache["len"] = (length + (T if lens is None else lens)).to(torch.int32)
 
-    x = rms_norm(x, params["final_ln"], cfg.norm_eps)
+    x = pin(rms_norm(x, params["final_ln"], cfg.norm_eps))
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    logits = (x @ head).float()
+    # on DTensors each rank's rows against the whole head: DTensor's sharding
+    # propagation of this product's backward over a mesh of 16 x 16 fails
+    logits = rows_gathered(lambda h, w: (h @ w).float(), x, head)
     return logits, new_cache, {"aux": aux_total, "hidden": x}
 
 

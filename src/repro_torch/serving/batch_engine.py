@@ -64,6 +64,7 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+from torch.distributed.device_mesh import DeviceMesh
 
 from repro_torch.core.traversal import delayed_structure
 from repro_torch.core.trees import DraftTree
@@ -192,8 +193,8 @@ class BatchedSpeculativeEngine:
     ``mesh``: the device this engine's pool lives on (one shard of
     ``ShardedBatchedSpeculativeEngine``, which passes ``shard_id`` too;
     launch/sharding.pool_shardings places the pool).  It must be the
-    weights' device: a shard on another card than its weights is ROADMAP
-    queue 1 item 8b.  ``profile_commits``: when set, ``commit_ms`` waits
+    weights' device: a shard on another card than its weights, like a
+    ``DeviceMesh`` of several ranks, is ROADMAP queue 1 item 8b.  ``profile_commits``: when set, ``commit_ms`` waits
     for the commit to finish on the device instead of timing the host's
     dispatch only (blocking every step would serialize the host against the
     device work the pipeline hides)."""
@@ -240,6 +241,9 @@ class BatchedSpeculativeEngine:
             page = (pool_blocks, bs)
         tcache = init_cache(target_cfg, n_slots, smax, self.device, True, page)
         dcache = init_cache(draft_cfg, n_slots, smax, self.device, True, page)
+        if isinstance(mesh, DeviceMesh) and mesh.size() > 1:
+            raise NotImplementedError("serving from one pool split over a mesh of several ranks is not ported "
+                                      "(ROADMAP queue 1 item 8b)")
         if mesh is not None:
             tcache, dcache = pool_shardings(mesh, tcache), pool_shardings(mesh, dcache)
             placed = (tcache["attn"] if "attn" in tcache else tcache)["len"].device

@@ -17,6 +17,13 @@ gradients to float32 and the moments are float32 from the first update on
 second moment would never decay).  A 0-dim torch tensor does not promote,
 so each leaf is widened explicitly.  ``init`` allocates the moments in
 that dtype at once (zeros either way, so the values are JAX's).
+
+On DTensor leaves (training over a ``DeviceMesh``, launch/train.py) the
+update runs shard by shard: each gradient first takes its parameter's
+placements, the global norm sums every rank's local squares (a leaf
+replicated on a mesh dim counted once) into one ``Partial`` scalar that is
+reduced once, and the elementwise update runs on each rank's local shards
+(the same arithmetic as on the whole leaf, without DTensor's dispatch).
 """
 from __future__ import annotations
 
@@ -25,6 +32,7 @@ from dataclasses import dataclass
 from typing import Any, NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor, Partial
 
 
 def tree_leaves(tree) -> list[torch.Tensor]:
@@ -38,6 +46,22 @@ def tree_map(fn, tree, *rest):
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
     return fn(tree, *rest)
+
+
+def global_sq_norm(grads: list) -> torch.Tensor:
+    """The sum of squares of every element of ``grads`` as a float32
+    scalar.  Of DTensors (each placed as its parameter): each rank's local
+    sums, a leaf divided by the ranks that hold the same shard (a power of
+    two on the meshes here, so exactly), added into one ``Partial`` scalar
+    and reduced once."""
+    if not isinstance(grads[0], DTensor):
+        sq = [torch.sum(torch.square(g.float())) for g in grads]
+        return sum(sq[1:], sq[0])
+    mesh = grads[0].device_mesh
+    local = [torch.sum(torch.square(g.to_local().float()))
+             / math.prod(mesh.size(i) for i, pl in enumerate(g.placements) if pl.is_replicate()) for g in grads]
+    part = sum(local[1:], local[0])
+    return DTensor.from_local(part, mesh, (Partial(),) * mesh.ndim, run_check=False).full_tensor()
 
 
 class AdamWState(NamedTuple):
@@ -91,30 +115,42 @@ class AdamW:
         update's).  So the card holds one copy of the moments and no
         whole-tree temporaries.  Returns (params, new state)."""
         step = state.step + 1
-        device = tree_leaves(params)[0].device
+        leaves = tree_leaves(params)
+        device = leaves[0].device
         f32 = lambda x: torch.tensor(x, dtype=torch.float32, device=device)
+        gs = tree_leaves(grads)
+        sharded = isinstance(leaves[0], DTensor)
+        if sharded:  # a gradient may come back Partial or otherwise placed than its parameter
+            gs = [g if g.placements == p.placements else g.redistribute(p.device_mesh, p.placements)
+                  for p, g in zip(leaves, gs)]
         scale = None
         if self.clip_norm is not None:
-            sq = [torch.sum(torch.square(g.float())) for g in tree_leaves(grads)]
-            gnorm = torch.sqrt(sum(sq[1:], sq[0]))
+            gnorm = torch.sqrt(global_sq_norm(gs))
             scale = torch.clamp_max(f32(self.clip_norm) / torch.clamp_min(gnorm, 1e-9), 1.0)
         bc1 = 1 - torch.pow(f32(self.b1), f32(step))
         bc2 = 1 - torch.pow(f32(self.b2), f32(step))
         lr = self.schedule(step, device)
-        for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads), tree_leaves(state.mu),
-                              tree_leaves(state.nu)):
-            if m.dtype != self.moment_dtype(p) or v.dtype != m.dtype:
-                raise ValueError(f"moments of {m.dtype}/{v.dtype} for a {p.dtype} parameter: take them from init")
-            if scale is not None:
-                g = g.to(torch.promote_types(g.dtype, scale.dtype)) * scale
-            m.mul_(self.b1).add_((1 - self.b1) * g)
-            v.mul_(self.b2).add_((1 - self.b2) * torch.square(g))
-            del g
-            # p - lr * (m / bc1 / (sqrt(v / bc2) + eps) + wd * p), in the dtype JAX's float32 scalars give
-            wide = torch.promote_types(torch.promote_types(p.dtype, m.dtype), torch.float32)
-            den = (v.to(wide) / bc2).sqrt_().add_(self.eps)
-            u = (m.to(wide) / bc1).div_(den)
-            del den
-            u.add_(self.weight_decay * p).mul_(lr)
-            p.copy_(u.neg_().add_(p))
+        local = (lambda t: t.to_local()) if sharded else (lambda t: t)  # a view of the shard: written in place
+        for p, g, m, v in zip(leaves, gs, tree_leaves(state.mu), tree_leaves(state.nu)):
+            self._update_leaf(local(p), local(g), local(m), local(v), scale, bc1, bc2, lr)
         return params, AdamWState(step=step, mu=state.mu, nu=state.nu)
+
+    def _update_leaf(self, p, g, m, v, scale, bc1, bc2, lr):
+        if m.dtype != self.moment_dtype(p) or v.dtype != m.dtype:
+            raise ValueError(f"moments of {m.dtype}/{v.dtype} for a {p.dtype} parameter: take them from init")
+        if scale is not None:
+            g = g.to(torch.promote_types(g.dtype, scale.dtype)) * scale
+        # JAX casts a Python scalar to the array's dtype (weak typing): bf16
+        # moments decay by bf16(b1) = 0.8984375, not by 0.9
+        b1, b2, c1, c2 = (float(torch.tensor(x, dtype=m.dtype)) for x in
+                          (self.b1, self.b2, 1 - self.b1, 1 - self.b2))
+        m.mul_(b1).add_(c1 * g)
+        v.mul_(b2).add_(c2 * torch.square(g))
+        del g
+        # p - lr * (m / bc1 / (sqrt(v / bc2) + eps) + wd * p), in the dtype JAX's float32 scalars give
+        wide = torch.promote_types(torch.promote_types(p.dtype, m.dtype), torch.float32)
+        den = (v.to(wide) / bc2).sqrt_().add_(self.eps)
+        u = (m.to(wide) / bc1).div_(den)
+        del den
+        u.add_(self.weight_decay * p).mul_(lr)
+        p.copy_(u.neg_().add_(p))

@@ -1,0 +1,143 @@
+"""The rank side of tests/test_torch_distributed.py.
+
+``spawn`` runs a function of this module in ``world`` spawned processes,
+joined in one ``gloo`` process group through a file; each process imports
+only torch and the port (neither JAX nor pytest), and what rank 0 returns
+comes back to the caller.  A rank that raises fails the call with its
+traceback; a rank that hangs fails it after ``timeout`` seconds, and every
+process is killed.
+"""
+from __future__ import annotations
+
+import multiprocessing
+import queue
+import traceback
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+
+def _main(fn_name: str, rank: int, world: int, init_file: str, args: tuple, out) -> None:
+    torch.set_num_threads(1)
+    try:
+        dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank, world_size=world)
+        try:
+            result = globals()[fn_name](rank, *args)
+        finally:
+            dist.destroy_process_group()
+        out.put((rank, True, result if rank == 0 else None))
+    except BaseException:  # reported to the parent, which fails the test
+        out.put((rank, False, traceback.format_exc()))
+
+
+def spawn(fn_name: str, world: int, init_file: str, args: tuple = (), timeout: float = 200.0):
+    """Rank 0's return value of ``fn_name(rank, *args)`` run on ``world``
+    ranks."""
+    ctx = multiprocessing.get_context("spawn")
+    out = ctx.Queue()
+    procs = [ctx.Process(target=_main, args=(fn_name, r, world, init_file, args, out), daemon=True)
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    results = {}
+    try:
+        for _ in range(world):
+            rank, ok, payload = out.get(timeout=timeout)
+            if not ok:
+                raise RuntimeError(f"rank {rank} failed:\n{payload}")
+            results[rank] = payload
+    except queue.Empty:
+        raise TimeoutError(f"{world - len(results)} of {world} ranks did not finish within {timeout} s") from None
+    finally:
+        for p in procs:
+            p.join(timeout=10)
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=10)
+    return results[0]
+
+
+def _mesh(shape: tuple):
+    from torch.distributed.device_mesh import init_device_mesh
+
+    names = ("data", "model") if len(shape) == 2 else ("pod", "data", "model")
+    return init_device_mesh("cpu", shape, mesh_dim_names=names)
+
+
+def train_steps(rank: int, shape: tuple, cases: dict, opt_kw: dict) -> dict:
+    """Per arch of ``cases`` ({arch: (numpy params, [numpy batch, ...])}):
+    the float32 smoke config's parameters placed over a ``shape`` mesh, one
+    ``make_sharded_train_step`` step a batch; returns {arch: (losses,
+    {path: gathered numpy leaf})}."""
+    from repro_torch import bridge
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch.sharding import gather
+    from repro_torch.launch.train import make_sharded_train_step, place_params
+    from repro_torch.training.loop import to_device
+    from repro_torch.training.optim import AdamW
+
+    mesh = _mesh(shape)
+    opt = AdamW(**opt_kw)
+    out = {}
+    for arch, (np_params, batches) in cases.items():
+        cfg = get_smoke(arch).replace(dtype="float32")
+        params = place_params(mesh, cfg, bridge.params_from_jax(np_params, device="cpu"))
+        state = opt.init(params)
+        step = make_sharded_train_step(cfg, opt, mesh)
+        losses = []
+        for b in batches:
+            params, state, loss = step(params, state, to_device(b, "cpu"))
+            losses.append(float(loss))
+        out[arch] = (losses, _flat(gather(params)))
+    return out
+
+
+def _flat(tree, prefix="") -> dict:
+    if isinstance(tree, dict):
+        return {k: v for key in tree for k, v in _flat(tree[key], f"{prefix}{key}/").items()}
+    return {prefix[:-1]: tree.detach().numpy()}
+
+
+def pins_and_pool(rank: int) -> dict:
+    """On a (2, 2) mesh: the placements ``pin`` and ``pin_moe_buffer`` give
+    (and what they leave alone); then a dense ring pool placed by
+    ``pool_shardings`` over a 2-rank data mesh, its local rows and the pool
+    gathered back."""
+    from torch.distributed.tensor import DTensor, Replicate, distribute_tensor
+
+    from repro_torch.launch.mesh import make_data_mesh
+    from repro_torch.launch.sharding import gather, pool_shardings
+    from repro_torch.models import act_sharding
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.models.transformer import init_cache
+
+    mesh = _mesh((2, 2))
+    rep = (Replicate(), Replicate())
+    x = distribute_tensor(torch.arange(4 * 3 * 8, dtype=torch.float32).reshape(4, 3, 8), mesh, rep)
+    odd = distribute_tensor(torch.zeros(3, 8), mesh, rep)
+    buf = distribute_tensor(torch.zeros(4, 6, 8), mesh, rep)
+    res = {"unpinned": act_sharding.pin(x).placements}
+    with act_sharding.activation_sharding(mesh, ("data",)):
+        pinned = act_sharding.pin(x)
+        res.update(pinned=pinned.placements, pinned_local=tuple(pinned.to_local().shape),
+                   pinned_equal=bool(torch.equal(pinned.full_tensor(), x.full_tensor())),
+                   odd=act_sharding.pin(odd).placements, plain=act_sharding.pin(torch.zeros(4, 3)).shape,
+                   moe=act_sharding.pin_moe_buffer(buf).placements,
+                   moe_local=tuple(act_sharding.pin_moe_buffer(buf).to_local().shape))
+    res["cleared"] = act_sharding.pin(x).placements
+
+    data = make_data_mesh(2, device_type="cpu")
+    cfg = ModelConfig(vocab=64, d_model=32, n_layers=2, n_heads=4, n_kv_heads=2, d_ff=64, dtype="float32")
+    cache = init_cache(cfg, 4, 16, "cpu", per_stream=True)
+    gen = torch.Generator().manual_seed(0)
+    cache["attn"]["k"].normal_(generator=gen)
+    cache["attn"]["pos"].random_(0, 16, generator=gen)
+    cache["attn"]["len"].random_(0, 16, generator=gen)
+    if rank < 2:
+        placed = pool_shardings(data, cache)
+        k = placed["attn"]["k"]
+        res.update(pool_dtensor=isinstance(k, DTensor), pool_local=tuple(k.to_local().shape),
+                   pool_equal=all(np.array_equal(a, b) for a, b in
+                                  zip(_flat(gather(placed)).values(), _flat(cache).values())))
+    return res

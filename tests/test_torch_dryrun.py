@@ -125,3 +125,54 @@ def test_main_writes_json_and_exits_by_failures(tmp_path, capsys):
     assert dryrun.main(["--arch", "no-such-arch", "--shape", "long_500k", "--no-flops", "--out", str(out)]) == 1
     (r,) = json.loads(out.read_text())
     assert "KeyError" in r["error"] and "[FAIL] no-such-arch" in capsys.readouterr().out
+
+
+def test_mesh_counts_one_sharded_matmul():
+    """Under a ``fake`` process group of 256 ranks: x (256, 64) with its rows
+    on "data" times w (64, 32), (data, model) as an up-projection's rule
+    places it.  DTensor gathers w over "data" (each rank's (4, 2) shard into
+    (64, 2)); ``MeshCounts`` counts exactly those bytes, and the FLOPs of
+    the rank's own (16, 64) x (64, 2) product.  The product runs once
+    before, as ``dry_run_mesh``'s step does: DTensor's first propagation of
+    an op runs it at its global shape, which the count would take."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_production_mesh
+
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=256)
+    try:
+        mesh = make_production_mesh(device_type="cpu")
+        x = distribute_tensor(torch.ones(256, 64), mesh, (Shard(0), Replicate()))
+        w = distribute_tensor(torch.ones(64, 32), mesh, (Shard(0), Shard(1)))
+        x @ w
+        counts = dryrun.MeshCounts(())
+        with counts:
+            y = x @ w
+        assert y.placements == (Shard(0), Shard(1)) and y.to_local().shape == (16, 2)
+        assert counts.collectives == {"all-gather": 64 * 2 * 4, "all-reduce": 0, "reduce-scatter": 0,
+                                      "all-to-all": 0, "collective-permute": 0}
+        assert counts.flops == 2 * 16 * 64 * 2
+    finally:
+        dist.destroy_process_group()
+
+
+def test_dry_run_mesh_on_a_smoke_config():
+    """The granite smoke's train step on the 16x16 mesh (a batch of 256,
+    16 rows a data rank): one device's bytes equal what the specs place, its
+    parameter count is JAX's, and the step's collectives are counted under
+    JAX's five names."""
+    cfg = get_smoke("granite-8b")
+    r = dryrun.dry_run_mesh("granite-8b", {"seq": 16, "batch": 256, "kind": "train"}, cfg_override=cfg)
+    assert set(r) == KEYS | {"mesh", "devices", "placement_bytes", "collectives", "collective_bytes_total"}
+    assert r["mesh"] == "16x16" and r["devices"] == 256 and r["kind"] == "train"
+    j_params = jax.eval_shape(partial(jt.init_params, j_get_smoke("granite-8b")), jax.random.PRNGKey(0))
+    assert r["param_count"] == sum(x.size for x in jax.tree.leaves(j_params))
+    assert r["resident_bytes"] == r["placement_bytes"] < r["param_count"] * 2 * 5  # sharded: < params + moments
+    assert r["resident_bytes"] == r["param_bytes"] + r["opt_bytes"] + r["cache_bytes"] + r["input_bytes"]
+    # two float32 moments a parameter, placed alike: 4x a bf16 leaf's bytes, 2x a float32 leaf's
+    assert 2 * r["param_bytes"] < r["opt_bytes"] < 4 * r["param_bytes"]
+    assert set(r["collectives"]) == {"all-gather", "all-reduce", "reduce-scatter", "all-to-all", "collective-permute"}
+    assert r["collectives"]["all-gather"] > 0 and r["collective_bytes_total"] == sum(r["collectives"].values())
+    assert r["peak_bytes"] >= r["resident_bytes"] and r["flops_counted"] > 0 and r["fits"]

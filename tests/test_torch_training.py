@@ -18,7 +18,8 @@ Same weights (bridged from JAX), same batches made with numpy:
     granite smoke;
   * ``kernels.ops.refuse_grad`` refuses a tensor that requires grad on a
     CUDA device type (no card needed), a training pass refuses a cache, and
-    the launcher trains on the CPU.
+    the launcher trains on the CPU (and, without a process group of 256
+    ranks, refuses ``--distributed``).
 """
 import dataclasses
 import os
@@ -289,8 +290,10 @@ def test_adamw_on_bf16_params_matches_jax(clip_norm):
     JAX's moments are float32 (its float32 scale promotes the gradients)
     and the port's must be too, within 1e-5 of each leaf's largest |value|,
     the bf16 parameters bit for bit.  Without it the moments are bf16 in both,
-    within 2 bf16 ulps: XLA on the CPU rounds a fused bf16 expression once,
-    torch each op."""
+    within 2 bf16 ulps (they agree bit for bit: both scale by the bf16-rounded
+    b1, b2).  JAX's update runs un-jitted, so each of its ops rounds alone, as
+    torch's do; jitted, XLA's CPU backend fuses the bf16 update and rounds it
+    as the host's bf16 support makes it."""
     rng = np.random.default_rng(0)
     shapes = {"a": ((64, 48), "bfloat16"), "b": {"c": ((32,), "bfloat16")}, "d": ((16,), "float32")}
 
@@ -307,9 +310,8 @@ def test_adamw_on_bf16_params_matches_jax(clip_norm):
     jo, to = JAdamW(**kw), TAdamW(**kw)
     jp, tp = jcast(p0), tcast(p0)
     js, ts = jo.init(jp), to.init(tp)
-    jupdate = jax.jit(jo.update)
     for g in gs:
-        jp, js = jupdate(jcast(g), js, jp)
+        jp, js = jo.update(jcast(g), js, jp)
         tp, ts = to.update_(tcast(g), ts, tp)
     tol = 1e-5 if clip_norm else 2 * 2.0**-7
     for what, j, t in (("params", jp, tp), ("mu", js.mu, ts.mu), ("nu", js.nu, ts.nu)):
@@ -392,7 +394,8 @@ def test_train_launcher_on_the_cpu(capsys, tmp_path):
     assert "step     1  loss" in out and "final loss:" in out
     params, step = tck.load_checkpoint(ck, device="cpu")
     assert step == 2 and "embed" in params
-    with pytest.raises(NotImplementedError, match="item 8b"):
+    # the production mesh needs a process group of 256 ranks (torchrun), and this process has none
+    with pytest.raises(RuntimeError, match="found world size 0"):
         ttrain.main(["--device", "cpu", "--smoke", "--arch", "granite-3-2b", "--distributed"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="--device cpu"):
