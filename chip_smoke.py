@@ -126,7 +126,16 @@
    walk's block law at 5000 draws; (e) granite-8b at full width cut to 4
    target layers and a 1-layer draft in float32: how many of 3 streams the
    batched engine serves as the single-stream one does, and of 12 the
-   sharded as the unsharded (reported).
+   sharded as the unsharded (reported); (f) 8a's configuration and traffic
+   (nothing cut) through launch/serve.py's --distributed path, one shard a
+   rank: 2 spawned gloo rank processes, each drawing granite-8b + draft
+   from the launcher's seed (phase 4's weights) on cuda:(rank % cards),
+   so on a one-card machine both ranks share the card; run after phase 4
+   has freed its models.  Every request's tokens and reason, the routing
+   and each kernel's launches summed over the ranks equal 8a's pipelined
+   run; one exchange a step and no other collective; a rank that fails or
+   hangs fails the phase; each rank's peak and wall and the aggregate
+   tok/s reported beside 8a's.
 9. The encoder-decoder and VLM families, each at full width with its
    make_draft_cfg draft, bf16, one stream, after every
    earlier model is freed: (a) whisper-medium (24 + 24 layers, d 1024,
@@ -178,7 +187,9 @@
    0.1 % + 1 MiB; and the dry run's peak_bytes beside
    max_memory_allocated of one real decode step there (kernel 1 at every
    layer, launches exact) and of one granite-3-2b train step of 1 x 1024
-   tokens (no kernel), reported as ratios.
+   tokens (no kernel), reported as ratios.  recurrentgemma-2b's prefill_32k
+   and train_4k entries run cut to 12 of its 26 layers (DRY_CUT_LAYERS:
+   at full depth they alone bound the table, at ~116 s on the H100's host).
    Phase 11's worker processes also run phase 12c's dry runs.
 12. The production meshes (launch/mesh.py, launch/sharding.py,
    models/act_sharding.py, launch/train.py's make_sharded_train_step):
@@ -1507,10 +1518,12 @@ def _serve_batched(torch, eng, prompts, max_new, seeds, layers, actions=None, ne
     rids = [eng.submit(p, max_new=m, seed=sd) for p, m, sd in zip(prompts, max_new, seeds)]
     routed = [eng.shard_of(r) for r in rids] if shards else None
     owner = dict(zip(rids, routed)) if shards else {}  # requests never migrate
+    engine_steps = 0
     while eng.queue or eng.streams:
         ts = time.perf_counter()
         events = eng.step()
         te = time.perf_counter()
+        engine_steps += 1
         commit_groups += len({(owner.get(ev["rid"], 0), len(ev["new_tokens"])) for ev in events})
         for ev in events:
             first.setdefault(ev["rid"], ts)
@@ -1589,8 +1602,10 @@ def _serve_batched(torch, eng, prompts, max_new, seeds, layers, actions=None, ne
            "blocks_peak": c["blocks_peak"], "steps": steps, "padded_calls": c["padded_calls"],
            "ragged_calls": c["ragged_calls"], "pipeline_ahead": c["pipeline_ahead"],
            "pipeline_stalls": c["pipeline_stalls"], "launches": launches, "expected_launches": expected,
-           "commit_calls": c["commit_calls"], "tokens_per_step": [seen[r] for r in rids]}
+           "commit_calls": c["commit_calls"], "tokens_per_step": [seen[r] for r in rids],
+           "engine_steps": engine_steps}
     if shards:
+        res["routing"] = routed
         res["grouped_commits"] = eng.grouped_commits
         res["blocks_peak_per_shard"] = [sh.counters["blocks_peak"] for sh in shards]
         res["requests_per_shard"] = [routed.count(i) for i in range(len(shards))]
@@ -2475,6 +2490,7 @@ def phase_sharded_tree(torch, tcfg, tp, dcfg, dp, ctx):
         bad = [i for i, (a, b) in enumerate(zip(tokens["pipelined"], tokens["sync"])) if a != b]
         raise RuntimeError(f"8a: pipelined tokens differ from synchronous tokens for requests {bad}")
     results["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    results["pipelined_tokens"] = tokens["pipelined"]  # phase 8f's reference
     results["seconds"] = time.perf_counter() - t_phase
     log(f"  pipelined tokens == sync tokens for all {N_REQUESTS} requests; streams equal to phase 4's unsharded "
         f"tokens: {results['sync']['matches_unsharded']} of {N_REQUESTS} (reported, not claimed: a shard's batch is "
@@ -2499,6 +2515,155 @@ def phase_sharded_replay(torch, tcfg, tp, dcfg, dp, ctx):
     log(f"  streams equal to phase 7b's unsharded tokens: {r['matches_unsharded']} of {N_REQUESTS} (reported); "
         f"max_memory_allocated {r['max_memory_allocated'] / 2**30:.3f} GiB; phase 8b took {r['seconds']:.1f} s")
     return r
+
+
+# phase 8f: the launcher's --distributed path (launch/serve.py) with phase 8a's engine settings
+RANK_SHARD_ARGS = ["--arch", "granite-8b", "--distributed", "--device", "cuda", "--streams", str(N_SLOTS),
+                   "--data-shards", str(SHARDS), "--verifier", "specinfer", "--K", "2", "--L1", "2", "--L2", "2",
+                   "--block-size", "64", "--seed", "0"]
+RANK_TIMEOUT_S = 400
+
+
+def _shard_rank(rank, n, init_file, traffic, out):
+    """One gloo rank of phase 8f (spawned): serve ``traffic`` ([(prompt,
+    max_new, seed)]) through launch/serve.py's ``serve_distributed``, its
+    shard on cuda:(rank % cards), every kernel's launch count set to 0
+    just before and read just after, every ``all_gather_object`` counted."""
+    import traceback
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(SRC))
+    os.environ["LOCAL_RANK"] = str(rank)
+    try:
+        dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank, world_size=n,
+                                timeout=timedelta(seconds=RANK_TIMEOUT_S))
+        try:
+            from repro_torch.launch import serve
+
+            gathers, gather_object = [0], dist.all_gather_object
+
+            def counted(*a, **kw):
+                gathers[0] += 1
+                return gather_object(*a, **kw)
+
+            dist.all_gather_object = counted
+            torch.backends.cuda.matmul.allow_tf32 = False  # as phase 1 sets them in the parent
+            torch.backends.cudnn.allow_tf32 = False
+            torch.cuda.set_device(rank % torch.cuda.device_count())
+            torch.cuda.reset_peak_memory_stats()
+            counters = _launch_counters()
+            for fn in counters.values():
+                fn.launches = 0
+            res = serve.serve_distributed(serve.build_parser().parse_args(RANK_SHARD_ARGS), requests=traffic)
+            eng = res["engine"]
+            payload = {"rank": rank, "device": str(eng.local.device), "outs": res["outs"], "routing": res["routing"],
+                       "wall_s": res["wall_s"], "launches": {k: fn.launches for k, fn in counters.items()},
+                       "exchanges": dict(eng.exchanges), "gathers": gathers[0], "counters": eng.counters,
+                       "local_counters": dict(eng.local.counters),
+                       "max_memory_allocated": torch.cuda.max_memory_allocated()}
+        finally:
+            dist.destroy_process_group()
+        out.put((rank, True, payload))
+    except BaseException:  # reported to the parent, which fails the phase
+        out.put((rank, False, traceback.format_exc()))
+
+
+def phase_rank_shards(torch, a, ctx):
+    """8f: phase 8a's configuration and traffic through the launcher's
+    ``--distributed`` path, one shard a rank: SHARDS gloo rank processes,
+    on one card (two ranks share it) or a card each.  Tokens, reasons and
+    routing equal 8a's pipelined run, 12 of 12; each kernel's launches
+    summed over the ranks equal 8a's; the ranks exchange once a step (8a's
+    steps) and make no other collective.  A rank that fails or hangs
+    fails the phase.  Reported: each rank's peak and wall, the aggregate
+    tok/s, beside 8a's."""
+    import gc
+    import queue
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    t_phase = time.perf_counter()
+    cards = torch.cuda.device_count()
+    log(f"== phase 8f: phase 8a's traffic through launch/serve.py --distributed: ShardedBatchedSpeculativeEngine "
+        f"with one shard a rank, {SHARDS} gloo ranks on {min(cards, SHARDS)} card(s), full-width granite-8b + "
+        "draft drawn on each rank from the launcher's seed (phase 4's), bf16, pipelined")
+    gc.collect()
+    torch.cuda.empty_cache()
+    traffic = list(zip(ctx["prompts"], ctx["max_new"], ctx["seeds"]))
+    ctx_mp = mp.get_context("spawn")
+    got = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        out = ctx_mp.Queue()
+        procs = [ctx_mp.Process(target=_shard_rank, args=(r, SHARDS, f"{tmp}/init", traffic, out))
+                 for r in range(SHARDS)]
+        for p in procs:
+            p.start()
+        try:
+            for _ in range(SHARDS):
+                rank, ok, payload = out.get(timeout=RANK_TIMEOUT_S)
+                if not ok:
+                    raise RuntimeError(f"8f: rank {rank} failed:\n{payload}")
+                got[rank] = payload
+        except queue.Empty:
+            raise RuntimeError(f"8f: {SHARDS - len(got)} of {SHARDS} ranks did not finish within "
+                               f"{RANK_TIMEOUT_S} s") from None
+        finally:
+            for p in procs:
+                p.join(timeout=30)
+                if p.is_alive():
+                    p.kill()
+                    p.join(timeout=30)
+        if any(p.exitcode != 0 for p in procs):
+            raise RuntimeError(f"8f: rank exit codes {[p.exitcode for p in procs]}")
+    ranks = [got[r] for r in range(SHARDS)]
+    r0 = ranks[0]
+    want = a["pipelined_tokens"]
+    match = sum(o["tokens"] == w and o["reason"] == "length" for o, w in zip(r0["outs"], want))
+    launches = {k: sum(r["launches"][k] for r in ranks) for k in r0["launches"]}
+    steps = a["pipelined"]["engine_steps"]
+    wall = max(r["wall_s"] for r in ranks)
+    n_tokens = sum(len(o["tokens"]) for o in r0["outs"])
+    res = {"ranks": SHARDS, "cards": min(cards, SHARDS), "devices": [r["device"] for r in ranks],
+           "matches_8a": match, "routing": r0["routing"], "launches": launches,
+           "phase8a_launches": a["pipelined"]["launches"], "exchanges": r0["exchanges"],
+           "gathers": [r["gathers"] for r in ranks], "phase8a_engine_steps": steps,
+           "wall_s": [r["wall_s"] for r in ranks], "tokens": n_tokens, "tokens_per_s": n_tokens / wall,
+           "phase8a_wall_s": a["pipelined"]["wall_s"], "phase8a_tokens_per_s": a["pipelined"]["tokens_per_s"],
+           "max_memory_allocated": [r["max_memory_allocated"] for r in ranks],
+           "commit_calls": [r["local_counters"]["commit_calls"] for r in ranks],
+           "counters": r0["counters"]}
+    log(f"  ranks on {res['devices']}: {match} of {N_REQUESTS} requests equal phase 8a's pipelined tokens and "
+        f"reasons; routing {'equal to' if r0['routing'] == a['pipelined']['routing'] else 'differs from'} 8a's "
+        f"{a['pipelined']['routing']}; exchanges {r0['exchanges']} (8a's steps {steps}), all_gather_object calls "
+        f"a rank {res['gathers']}; commits a rank {res['commit_calls']}")
+    log(f"  launches summed over the ranks {launches} (8a: {a['pipelined']['launches']})")
+    log(f"  wall a rank {', '.join(f'{w:.4f}' for w in res['wall_s'])} s, {n_tokens} tokens = "
+        f"{res['tokens_per_s']:.3f} tok/s aggregate (8a pipelined: {a['pipelined']['wall_s']:.4f} s, "
+        f"{a['pipelined']['tokens_per_s']:.3f} tok/s; {'two ranks share one card: not a speed across cards' if cards < SHARDS else 'a card a rank'}); "
+        f"max_memory_allocated a rank " + ", ".join(f"{m / 2**30:.3f} GiB" for m in res["max_memory_allocated"]))
+    for i, (o, w) in enumerate(zip(r0["outs"], want)):
+        if o["tokens"] != w or o["reason"] != "length":
+            j = _first_divergence(o["tokens"], w)
+            raise RuntimeError(f"8f: request {i} ({o['reason']}) differs from phase 8a's pipelined tokens"
+                               + (f" first at token {j}" if j is not None else f" in length: {len(o['tokens'])} "
+                                                                                f"vs {len(w)}"))
+    if any(r["outs"] != r0["outs"] or r["routing"] != r0["routing"] for r in ranks[1:]):
+        raise RuntimeError("8f: the ranks returned different results")
+    if r0["routing"] != a["pipelined"]["routing"]:
+        raise RuntimeError(f"8f: routing {r0['routing']} is not phase 8a's {a['pipelined']['routing']}")
+    if launches != a["pipelined"]["launches"]:
+        raise RuntimeError(f"8f: launches summed over the ranks {launches} are not phase 8a's "
+                           f"{a['pipelined']['launches']}")
+    if r0["exchanges"] != {"step": steps, "submit": 0, "pipeline": 0} or any(g != steps for g in res["gathers"]):
+        raise RuntimeError(f"8f: exchanges {r0['exchanges']} and all_gather_object calls {res['gathers']} for "
+                           f"{steps} steps: expected one a step and no other")
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 8f took {res['seconds']:.1f} s")
+    return res
 
 
 def _profile_device_verify(torch, eng, prompt):
@@ -3266,6 +3431,9 @@ DRY_JOBS = 8
 DRY_DECODE = {"seq": 4096, "batch": 8, "kind": "decode"}
 DRY_TRAIN = {"seq": 1024, "batch": 1, "kind": "train"}
 DRY_TOLERANCE_RULE = "|memory_allocated increase - resident_bytes| <= 0.1 % of resident_bytes + 1 MiB"
+# the table's two longest entries at full depth (~116 and ~72 s of host time on the H100's machine: the
+# RG-LRU scan runs in Python a layer), run at a cut depth so that the table ends with its other entries
+DRY_CUT_LAYERS = {("recurrentgemma-2b", "prefill_32k"): 12, ("recurrentgemma-2b", "train_4k"): 12}
 
 
 def _real_bytes(torch, build):
@@ -3313,7 +3481,9 @@ def phase_dry_run(torch):
     log(f"  torch.cuda.get_device_properties(0).total_memory {total}; launch/dryrun.py's H100_BYTES {H100_BYTES}")
     if torch.cuda.get_device_name(0) == "NVIDIA H100 80GB HBM3" and total != H100_BYTES:
         raise RuntimeError(f"11: H100_BYTES {H100_BYTES} is not this card's total_memory {total}")
-    entries = [(arch, shape, True, None) for arch in list_arches() for shape in SHAPES]
+    entries = [(arch, shape, True, None) + ((get_config(arch).replace(n_layers=DRY_CUT_LAYERS[arch, shape]),)
+                                             if (arch, shape) in DRY_CUT_LAYERS else ())
+               for arch in list_arches() for shape in SHAPES]
     # phase 12c's entries on the production meshes (40-160 s each) and the recurrent families'
     # prefill and train steps, which run their scans in Python (40-100 s each; the rest 2-35 s),
     # start first, so the processes finish together
@@ -3326,7 +3496,10 @@ def phase_dry_run(torch):
     table, failed = [], []
     for i in range(len(mesh_entries), len(entries)):
         status, r = done[i]
-        log("  " + _line(status, r))
+        if len(entries[i]) > 4:
+            r["cut_to_layers"] = entries[i][4].n_layers
+        log("  " + _line(status, r) + (f" [cut to {r['cut_to_layers']} of {get_config(r['arch']).n_layers} "
+                                       "layers]" if "cut_to_layers" in r else ""))
         (table if status == "OK" else failed).append(r)
     if failed:
         raise RuntimeError(f"11: {len(failed)} dry runs failed: {[(r['arch'], r['shape']) for r in failed]}")
@@ -3625,12 +3798,15 @@ def main():
 
     def granite_phase8(tcfg, tp, dcfg, dp, ctx):
         phase8["a"] = phase_sharded_tree(torch, tcfg, tp, dcfg, dp, ctx)
+        phase8["ctx"] = {k: ctx[k] for k in ("prompts", "max_new", "seeds")}
         phase8["c"], phase8["c_launches"] = phase_device_verify(torch, tcfg, tp, dcfg, dp, main_path)
 
     def hybrid_phase8(tcfg, tp, dcfg, dp, ctx):
         phase8["b"] = phase_sharded_replay(torch, tcfg, tp, dcfg, dp, ctx)
 
     batched = phase_batched(torch, then=granite_phase8)
+    # phase 4 has freed its models: the two ranks draw their own copies
+    phase8["f"] = phase_rank_shards(torch, phase8["a"], phase8["ctx"])
     batched_ref_err = phase_batched_reference(
         torch, make_draft_cfg(get_config("granite-8b")).replace(dtype="float32"), 3)
     moe, moe_launches = phase_moe(torch)
@@ -3642,7 +3818,8 @@ def main():
     recurrent, rec_single_launches, rec_batched_runs = phase_recurrent(torch, then=hybrid_phase8)
     phase8["d"] = phase_solver_laws(torch)
     phase8["e"], f32_batched_runs, f32_single_launches = phase_float32_match(torch)
-    phase8["seconds"] = sum(phase8[k]["seconds"] for k in "abcde")
+    phase8.pop("ctx")
+    phase8["seconds"] = sum(phase8[k]["seconds"] for k in "abcdef")
     log(f"  phase 8 took {phase8['seconds']:.1f} s")
     t9 = time.perf_counter()
     families, family_launches = phase_families(torch)
@@ -3658,13 +3835,14 @@ def main():
     meshes = phase_meshes(torch, training["a"], dry_run.pop("mesh_runs"))
 
     # each kernel's launches over every main-path run (phases 3, 5, 6, 7, 8c, 8e, 9a/9b and 10d single
-    # stream, 9c's card passes, both runs of phases 4, 5, 6e, 7, 8a and 8e, 8b's, phase 11's real
+    # stream, 9c's card passes, both runs of phases 4, 5, 6e, 7, 8a and 8e, 8b's, 8f's summed over its
+    # ranks, phase 11's real
     # decode step; phase 10's and 12's training and phase 11's train step launch none); its times at the
     # hottest shape of its path, in bf16
     runs = [batched["pipelined"]["launches"], batched["sync"]["launches"],
             moe["pipelined"]["launches"], moe["sync"]["launches"], *nde_batched_runs, *rec_batched_runs,
             phase8["a"]["pipelined"]["launches"], phase8["a"]["sync"]["launches"], phase8["b"]["launches"],
-            *f32_batched_runs]
+            phase8["f"]["launches"], *f32_batched_runs]
     total = {name: sum(r[name] for r in runs) for name in runs[0]}
     total["tree_attention"] += (launches + moe_launches + nde_single_launches + rec_single_launches
                                 + phase8["c_launches"] + f32_single_launches + family_launches

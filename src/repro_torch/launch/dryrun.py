@@ -324,10 +324,11 @@ def dry_run_mesh(arch: str, shape, *, multi_pod: bool = False, count_flops: bool
 
 
 def _run(entry) -> tuple[str, dict]:
-    arch, shape, count_flops, mesh = entry
+    arch, shape, count_flops, mesh, *override = entry
     try:  # a failed entry is recorded, and main's exit code says so
         if mesh is None:
-            return "OK", dry_run_one(arch, shape, count_flops=count_flops)
+            return "OK", dry_run_one(arch, shape, count_flops=count_flops,
+                                     cfg_override=override[0] if override else None)
         return "OK", dry_run_mesh(arch, shape, multi_pod=mesh, count_flops=count_flops)
     except Exception as e:  # noqa: BLE001
         r = {"arch": arch, "shape": shape_spec(shape)[0], "error": f"{type(e).__name__}: {e}"}
@@ -338,7 +339,8 @@ def _run(entry) -> tuple[str, dict]:
 
 def dry_run_table(entries, jobs: int = 1):
     """Yields (status "OK" or "FAIL", result) of each (arch, shape,
-    count_flops, mesh) of ``entries`` (mesh None: ``dry_run_one``, else
+    count_flops, mesh[, cfg_override]) of ``entries`` (mesh None:
+    ``dry_run_one``, with ``cfg_override`` when given, else
     ``dry_run_mesh`` with ``multi_pod=mesh``), in order: in this process, or over
     ``jobs`` worker processes (each entry is independent, host-bound Python
     work; the workers are spawned, so they never share a CUDA context)."""

@@ -13,6 +13,7 @@ take an ``AbstractMesh``.
 from __future__ import annotations
 
 import math
+import os
 from collections.abc import Mapping
 
 import torch
@@ -73,18 +74,40 @@ def make_data_mesh(n_shards: int, *, device_type: str = "cuda") -> DeviceMesh:
     return DeviceMesh(device_type, torch.arange(n_shards), mesh_dim_names=("data",))
 
 
-def shard_meshes(n_shards: int, devices=None) -> list[torch.device]:
-    """One device per shard, cycling ``devices``: by default every CUDA
-    device of the host (``torch.cuda.device_count()``), or the CPU when
-    there is none.  The sharded engine does not place its shards by it yet:
-    every shard lives on the weights' device, and shards on other cards are
-    ROADMAP queue 1 item 8b."""
+def shard_meshes(n_shards: int, devices) -> list[torch.device]:
+    """One device per shard, cycling ``devices``: a device type (``"cuda"``:
+    every CUDA device of the host, and it raises when there is none;
+    ``"cpu"``: the CPU) or a sequence of devices.  The caller names it (the
+    engine's device, or the launcher's ``--device``): nothing falls back to
+    the CPU.  JAX's ``shard_meshes`` cycles the local devices the same way."""
     if n_shards < 1:
         raise ValueError(f"need at least one shard, got {n_shards}")
-    if devices is None:
-        n = torch.cuda.device_count()
-        devices = [torch.device("cuda", i) for i in range(n)] if n else [torch.device("cpu")]
+    if devices == "cuda":
+        n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if not n:
+            raise RuntimeError("shards on cuda, but torch.cuda.is_available() is false or no device is "
+                               "visible; name the cpu to serve the plain versions")
+        devices = [torch.device("cuda", i) for i in range(n)]
+    elif devices == "cpu":
+        devices = [torch.device("cpu")]
+    elif isinstance(devices, str):
+        raise ValueError(f"shards live on cuda or cpu, not {devices!r} (or name a sequence of devices)")
     devices = [torch.device(d) for d in devices]
     if not devices:
         raise ValueError("no device to place the shards on")
     return [devices[i % len(devices)] for i in range(n_shards)]
+
+
+def rank_shard(device_type: str, group=None) -> tuple[int, torch.device]:
+    """This process's shard of a sharded engine with one shard a rank: its
+    shard id is its rank in ``group`` (the default process group when None)
+    and its device ``shard_meshes``' for its node-local rank (``LOCAL_RANK``,
+    which ``torchrun`` sets; the group rank without it), so ranks cycle the
+    host's cards as JAX's shards cycle its devices: ``cuda:(LOCAL_RANK %
+    device_count)``, or the CPU for ``device_type`` ``"cpu"``."""
+    if not dist.is_initialized():
+        raise RuntimeError("a shard a rank needs an initialised process group (run under torchrun, or call "
+                           "torch.distributed.init_process_group first)")
+    rank = dist.get_rank(group)
+    local = int(os.environ.get("LOCAL_RANK", rank))
+    return rank, shard_meshes(local + 1, device_type)[local]

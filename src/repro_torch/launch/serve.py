@@ -10,6 +10,9 @@
         --arch recurrentgemma-2b --streams 4
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --smoke \
         --arch granite-8b --streams 4 --requests 6 --data-shards 2
+    PYTHONPATH=src torchrun --nproc_per_node 2 -m repro_torch.launch.serve \
+        --distributed --device cpu --smoke --arch granite-8b --streams 4 \
+        --requests 6 --data-shards 2
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --smoke \
         --arch granite-8b --verifier spectr --verify-on-device
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --smoke \
@@ -24,7 +27,12 @@ speculative engine, or with ``--streams N`` through the continuous-batching
 engine over an N-row pool (paged, ragged auto-dispatch and pipelined
 stepping by default, as in the JAX launcher), with ``--data-shards N``
 through the sharded engine (N slot shards, each its own arena), and reports
-block efficiency and throughput.  ``--verify-on-device`` verifies the
+block efficiency and throughput.  ``--distributed`` serves the sharded
+engine with one shard a rank under ``torchrun --nproc_per_node N``: a
+``gloo`` process group, each rank's device ``cuda:(LOCAL_RANK % cards)``
+(or the CPU under ``--device cpu``), the same weights drawn from
+``--seed`` and the same prompts on every rank; rank 0 prints the report of
+the single-process ``--data-shards N``.  ``--verify-on-device`` verifies the
 single-stream engine's top-down OT verifiers on the device (the JAX
 launcher has no such flag; its engines take ``verify_on_device`` in
 ``EngineConfig``).  The SSM and hybrid targets (mamba2-2.7b,
@@ -40,12 +48,15 @@ from __future__ import annotations
 
 import argparse
 import time
+from datetime import timedelta
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import get_config, get_smoke
 from repro_torch.core.verify import verifier_names
+from repro_torch.launch.mesh import rank_shard
 from repro_torch.models.transformer import init_params
 from repro_torch.serving.batch_engine import BatchedSpeculativeEngine, ShardedBatchedSpeculativeEngine
 from repro_torch.serving.engine import EngineConfig, SamplingParams, SpeculativeEngine
@@ -127,24 +138,40 @@ def build_parser() -> argparse.ArgumentParser:
                     help="ragged node-major tree batching whenever it ships fewer "
                          "lanes than the padded block (token-identical; --no-ragged "
                          "pins the padded layout)")
+    ap.add_argument("--distributed", action="store_true",
+                    help="with --streams and --data-shards N, under torchrun --nproc_per_node N: one shard a "
+                         "rank of a gloo process group, each on cuda:(LOCAL_RANK %% cards) or the cpu")
     return ap
+
+
+def build_models(args, device):
+    """(target config, target weights, draft config, draft weights) drawn on
+    ``device`` from ``--seed`` (the draft from ``--seed`` + 1)."""
+    cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
+    dcfg = make_draft_cfg(cfg)
+    tp = init_params(cfg, torch.Generator(device=device).manual_seed(args.seed))
+    dp = init_params(dcfg, torch.Generator(device=device).manual_seed(args.seed + 1))
+    return cfg, tp, dcfg, dp
+
+
+def engine_config(args):
+    return (EngineConfig(verifier=args.verifier, K=args.K, L1=args.L1, L2=args.L2, max_cache=1024,
+                         seed=args.seed, verify_on_device=args.verify_on_device),
+            SamplingParams(args.temperature, args.top_p))
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    if args.distributed:
+        serve_distributed(args)
+        return
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda but torch.cuda.is_available() is false; "
                            "pass --device cpu to run the plain versions on the CPU")
 
-    cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
-    dcfg = make_draft_cfg(cfg)
-    tp = init_params(cfg, torch.Generator(device=device).manual_seed(args.seed))
-    dp = init_params(dcfg, torch.Generator(device=device).manual_seed(args.seed + 1))
-
-    ecfg = EngineConfig(verifier=args.verifier, K=args.K, L1=args.L1, L2=args.L2,
-                        max_cache=1024, seed=args.seed, verify_on_device=args.verify_on_device)
-    sampling = SamplingParams(args.temperature, args.top_p)
+    cfg, tp, dcfg, dp = build_models(args, device)
+    ecfg, sampling = engine_config(args)
     rng = np.random.default_rng(args.seed)
     if args.streams:
         serve_batched(args, cfg, tp, dcfg, dp, ecfg, sampling, rng, device)
@@ -171,20 +198,61 @@ def main(argv=None):
     )
 
 
-def serve_batched(args, cfg, tp, dcfg, dp, ecfg, sampling, rng, device):
+def serve_distributed(args, requests=None) -> dict:
+    """``--distributed``: this process serves its shard as a rank of the
+    default process group (started here over ``gloo`` from ``torchrun``'s
+    environment, and ended here, unless one exists).  ``requests`` as in
+    ``serve_batched``."""
+    if not args.streams:
+        raise ValueError("--distributed serves the sharded pool: pass --streams N --data-shards S")
+    if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--distributed --device cuda but torch.cuda.is_available() is false; "
+                           "pass --device cpu to serve the ranks on the CPU")
+    own = not dist.is_initialized()
+    if own:
+        dist.init_process_group("gloo", timeout=timedelta(minutes=10))
+    try:
+        rank, device = rank_shard(torch.device(args.device).type)
+        if device.type == "cuda":
+            torch.cuda.set_device(device)
+        cfg, tp, dcfg, dp = build_models(args, device)
+        ecfg, sampling = engine_config(args)
+        return serve_batched(args, cfg, tp, dcfg, dp, ecfg, sampling, np.random.default_rng(args.seed), device,
+                             group=dist.group.WORLD, requests=requests, report=rank == 0)
+    finally:
+        if own:
+            dist.destroy_process_group()
+
+
+def serve_batched(args, cfg, tp, dcfg, dp, ecfg, sampling, rng, device, group=None, requests=None,
+                  report=True) -> dict:
+    """Serve ``requests`` ([(prompt, max_new, seed)], by default
+    ``--requests`` 8-token prompts drawn from ``rng``, ``--max-new`` each,
+    seeds from ``--seed``) through the batched engine, or the sharded one
+    (``--data-shards`` > 1, or a process group: one shard a rank).  Prints
+    the report when ``report``; returns the engine, each request's
+    ``{"tokens", "reason"}`` and shard, and the wall time."""
     kw = dict(n_slots=args.streams, paged=not args.ring, block_size=args.block_size,
               pool_blocks=args.pool_blocks or None, pipeline=args.pipeline, ragged=args.ragged)
-    if args.data_shards > 1:
-        eng = ShardedBatchedSpeculativeEngine(cfg, tp, dcfg, dp, ecfg, sampling, data_shards=args.data_shards, **kw)
+    sharded = args.data_shards > 1 or group is not None
+    if sharded:
+        eng = ShardedBatchedSpeculativeEngine(cfg, tp, dcfg, dp, ecfg, sampling, data_shards=args.data_shards,
+                                              group=group, **kw)
     else:
         eng = BatchedSpeculativeEngine(cfg, tp, dcfg, dp, ecfg, sampling, **kw)
+    if requests is None:
+        requests = [(rng.integers(0, cfg.vocab, size=8).tolist(), args.max_new, args.seed + r)
+                    for r in range(args.requests)]
     t0 = time.perf_counter()
-    rids = [eng.submit(rng.integers(0, cfg.vocab, size=8).tolist(), max_new=args.max_new, seed=args.seed + r)
-            for r in range(args.requests)]
+    rids = [eng.submit(p, max_new=m, seed=s) for p, m, s in requests]
+    routing = [eng.shard_of(r) for r in rids] if sharded else None
     outs = eng.run()
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dt = time.perf_counter() - t0
+    res = {"engine": eng, "outs": [outs[r] for r in rids], "routing": routing, "wall_s": dt}
+    if not report:
+        return res
     for r, rid in enumerate(rids):
         out = outs[rid]["tokens"]
         print(f"req{r}: {out[:16]}{'...' if len(out) > 16 else ''}")
@@ -195,10 +263,12 @@ def serve_batched(args, cfg, tp, dcfg, dp, ecfg, sampling, rng, device):
         f"peak={c['blocks_peak']} used, reclaimed={c['blocks_reclaimed']})")
     stepping = (f"pipelined(ahead={c['pipeline_ahead']}, stalls={c['pipeline_stalls']}"
                 f"/{c['pipeline_iterations']} iters)" if args.pipeline else "sync")
-    if args.data_shards > 1:
+    if sharded:
         per = [sh.counters["blocks_peak"] for sh in eng.shards]
         stepping += (f" shards={args.data_shards}(x{eng.n_slots // args.data_shards} slots, peaks={per}, "
                      f"commits={c['commit_calls']} of which {eng.grouped_commits} grouped)")
+        if group is not None:
+            stepping += f" ranks={args.data_shards}(a shard each, exchanges={sum(eng.exchanges.values())})"
     print(
         f"\n[batched x{args.streams}] verifier={args.verifier} ({args.K},{args.L1},{args.L2}) "
         f"block_efficiency={be:.3f} target_calls={c['target_calls']} "
@@ -206,6 +276,7 @@ def serve_batched(args, cfg, tp, dcfg, dp, ecfg, sampling, rng, device):
         f"evicted={c['evicted']} pool={pool} stepping={stepping} wall={dt:.1f}s "
         f"tokens/s({device.type})={sum(len(o['tokens']) for o in outs.values()) / dt:.2f}"
     )
+    return res
 
 
 if __name__ == "__main__":

@@ -295,8 +295,9 @@ def pool_shardings(mesh, cache: dict) -> dict:
     the mesh's ranks, JAX's SPMD form.  ``mesh`` a ``torch.device`` (or a
     sequence of one): every leaf moved there, one shard's pool of the
     sharded engine.  A list of several devices in one process raises: no
-    engine serves from a pool split across cards yet (ROADMAP queue 1 item
-    8b, serving across cards)."""
+    engine serves from one pool split across cards (ROADMAP queue 1 item
+    8c); shards on several cards are served one a rank
+    (``ShardedBatchedSpeculativeEngine(group=...)``)."""
     if isinstance(mesh, DeviceMesh):
         axes = mesh_axes(mesh)
         specs = pool_specs(axes, cache)
@@ -312,8 +313,9 @@ def pool_shardings(mesh, cache: dict) -> dict:
     if len(devices) != 1:
         raise NotImplementedError(
             f"one pool over {len(devices)} devices of one process is not ported: place it over a DeviceMesh "
-            f"of ranks (launch.mesh.make_data_mesh); serving from such a pool is ROADMAP queue 1 item 8b. "
-            f"Split the pool into slot shards with ShardedBatchedSpeculativeEngine instead")
+            f"of ranks (launch.mesh.make_data_mesh); serving from such a pool is ROADMAP queue 1 item 8c. "
+            f"Split the pool into slot shards with ShardedBatchedSpeculativeEngine instead, one a rank "
+            f"(group=..., launch/serve.py --distributed) to serve them from several cards")
     dev = torch.device(devices[0])
 
     def move(tree: dict) -> dict:

@@ -51,10 +51,12 @@ pipelined step's recurrent draft pool is rewound from a copied back frame
 
 ``ShardedBatchedSpeculativeEngine`` splits the pool into ``data_shards``
 slot shards, each a ``BatchedSpeculativeEngine`` with its own rows and
-arena on the weights' device, routed by a bin-packing scheduler; the
-tree strategy commits every verified shard in one grouped commit.  The
-batched engines verify on the host only: ``verify_on_device`` is refused,
-as in JAX.
+arena, routed by a bin-packing scheduler.  In one process every shard
+lives on the weights' device and the tree strategy commits every verified
+shard in one grouped commit; given a process group, each rank serves one
+shard from its own card and the ranks exchange only host state, once a
+step.  The batched engines verify on the host only: ``verify_on_device``
+is refused, as in JAX.
 """
 from __future__ import annotations
 
@@ -64,11 +66,13 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 from repro_torch.core.traversal import delayed_structure
 from repro_torch.core.trees import DraftTree
 from repro_torch.core.verify import get_verifier
+from repro_torch.launch.mesh import rank_shard
 from repro_torch.launch.sharding import pad_slots, pool_shardings
 from repro_torch.models.cache import (
     PagedCachePool,
@@ -193,8 +197,10 @@ class BatchedSpeculativeEngine:
     ``mesh``: the device this engine's pool lives on (one shard of
     ``ShardedBatchedSpeculativeEngine``, which passes ``shard_id`` too;
     launch/sharding.pool_shardings places the pool).  It must be the
-    weights' device: a shard on another card than its weights, like a
-    ``DeviceMesh`` of several ranks, is ROADMAP queue 1 item 8b.  ``profile_commits``: when set, ``commit_ms`` waits
+    weights' device: a shard serves from another card as a rank of its
+    own (``ShardedBatchedSpeculativeEngine(group=...)``), and one pool over
+    a ``DeviceMesh`` of several ranks is ROADMAP queue 1 item 8c.
+    ``profile_commits``: when set, ``commit_ms`` waits
     for the commit to finish on the device instead of timing the host's
     dispatch only (blocking every step would serialize the host against the
     device work the pipeline hides)."""
@@ -243,13 +249,16 @@ class BatchedSpeculativeEngine:
         dcache = init_cache(draft_cfg, n_slots, smax, self.device, True, page)
         if isinstance(mesh, DeviceMesh) and mesh.size() > 1:
             raise NotImplementedError("serving from one pool split over a mesh of several ranks is not ported "
-                                      "(ROADMAP queue 1 item 8b)")
+                                      "(ROADMAP queue 1 item 8c); serve one shard a rank instead "
+                                      "(ShardedBatchedSpeculativeEngine(group=...), launch/serve.py --distributed)")
         if mesh is not None:
             tcache, dcache = pool_shardings(mesh, tcache), pool_shardings(mesh, dcache)
             placed = (tcache["attn"] if "attn" in tcache else tcache)["len"].device
             if placed != self.device:
-                raise ValueError(f"the shard's device {placed} is not its weights' device {self.device}: "
-                                 "shards on other cards than the weights are ROADMAP queue 1 item 8b")
+                raise ValueError(f"the shard's device {placed} is not its weights' device {self.device}: in one "
+                                 "process every shard stays on its weights' device; serve a shard from another "
+                                 "card as a rank of its own (ShardedBatchedSpeculativeEngine(group=...), "
+                                 "launch/serve.py --distributed)")
         self.tpool = make_cache_pool(tcache, n_slots)
         self.dpool = make_cache_pool(dcache, n_slots)
         # pure-recurrent caches have no attention component to page
@@ -326,14 +335,7 @@ class BatchedSpeculativeEngine:
         """Queue a request; it is admitted when a pool row frees up.  ``seed``
         drives this stream's randomness: a single-stream ``SpeculativeEngine``
         with ``EngineConfig(seed=seed)`` emits the same tokens."""
-        if not 1 <= len(prompt) < self.ecfg.max_cache:
-            raise ValueError(f"prompt of {len(prompt)} tokens cannot fit a {self.ecfg.max_cache}-slot cache ring")
-        if self.paged:
-            need = self._admit_need(len(prompt))
-            cap = min(p.total_blocks for p in self._paged_pools())
-            if need > cap:
-                raise ValueError(f"prompt of {len(prompt)} tokens needs {need} blocks "
-                                 f"(context + one speculation bucket); the arena has {cap}")
+        self.check_prompt(prompt)
         if self._pending_next is not None and self.tpool.free_slots:
             # stall-and-drain: a begun-ahead step locked in admission without
             # this request although a row is free.  If its boundary evicted,
@@ -350,6 +352,19 @@ class BatchedSpeculativeEngine:
         self.queue.append(BatchRequest(rid, list(prompt), max_new,
                                        self.ecfg.seed if seed is None else seed))
         return rid
+
+    def check_prompt(self, prompt: list[int]) -> None:
+        """Raise if no amount of waiting would admit ``prompt``: it does not
+        fit the cache ring, or (paged) its context plus one speculation
+        bucket needs more blocks than the arena has."""
+        if not 1 <= len(prompt) < self.ecfg.max_cache:
+            raise ValueError(f"prompt of {len(prompt)} tokens cannot fit a {self.ecfg.max_cache}-slot cache ring")
+        if self.paged:
+            need = self._admit_need(len(prompt))
+            cap = min(p.total_blocks for p in self._paged_pools())
+            if need > cap:
+                raise ValueError(f"prompt of {len(prompt)} tokens needs {need} blocks "
+                                 f"(context + one speculation bucket); the arena has {cap}")
 
     def can_admit(self, prompt_len: int) -> bool:
         """Whether a fresh request of ``prompt_len`` tokens would be admitted
@@ -1146,6 +1161,70 @@ def _commit_trees(engines, verified, counters) -> None:
     counters["commit_ms"] += (time.perf_counter() - t0) * 1e3
 
 
+def _take_finished(eng: BatchedSpeculativeEngine) -> dict[int, dict]:
+    """Pop a shard's finished payloads ({local rid: payload}, in popitem
+    order)."""
+    out = {}
+    while eng.finished:
+        lrid, info = eng.finished.popitem()
+        out[lrid] = info
+    return out
+
+
+@dataclass
+class ShardRecord:
+    """What every rank of a sharded engine with one shard a rank knows of a
+    shard: what routing reads (queued requests, live streams, free rows of
+    the target and draft pools, free blocks of each paged pool), what a
+    ``submit`` to the shard does (a begun-ahead step, whether its boundary
+    evicted, the next local rid), and the shard's counters and arena
+    occupancy.  Taken from the shard at every exchange; between exchanges
+    each rank applies the same ``submitted`` to it."""
+
+    queue: int
+    streams: int
+    free_rows: tuple[int, int]
+    free_blocks: tuple[int, ...]
+    pending: bool
+    pending_evicted: bool
+    next_rid: int
+    counters: dict
+    occupancy: dict
+
+    @classmethod
+    def of(cls, eng: BatchedSpeculativeEngine) -> "ShardRecord":
+        p = eng._pending_next
+        return cls(len(eng.queue), len(eng.streams), (eng.tpool.free_slots, eng.dpool.free_slots),
+                   tuple(pool.free_blocks for pool in eng._paged_pools()), p is not None,
+                   p is not None and p.boundary_evicted, eng._next_rid, dict(eng.counters), eng.pool_occupancy())
+
+    def routing(self) -> tuple:
+        """The fields a mirror must predict exactly."""
+        return (self.queue, self.streams, self.free_rows, self.free_blocks, self.pending, self.pending_evicted,
+                self.next_rid)
+
+    def can_admit(self, need: int | None) -> bool:
+        """``BatchedSpeculativeEngine.can_admit`` on the recorded state, for a
+        request that needs ``need`` free blocks (None: a ring pool)."""
+        if self.queue or not all(self.free_rows):
+            return False
+        return need is None or all(free >= need for free in self.free_blocks)
+
+    def submitted(self) -> bool:
+        """Apply a ``submit`` to the shard, as ``BatchedSpeculativeEngine.submit``
+        changes it.  False, with nothing applied, when only the owner can
+        tell the outcome: the submit finishes a begun-ahead step whose
+        boundary evicted (its streams may finish), which the other ranks
+        learn by an exchange."""
+        if self.pending and self.free_rows[0]:
+            if self.pending_evicted:
+                return False
+            self.pending = False  # rewound: the next step re-runs its boundary
+        self.queue += 1
+        self.next_rid += 1
+        return True
+
+
 class ShardedBatchedSpeculativeEngine:
     """The continuous-batching pool split into ``data_shards`` slot shards.
 
@@ -1153,8 +1232,7 @@ class ShardedBatchedSpeculativeEngine:
     src/repro/serving/batch_engine.py.  Each shard is an independent
     ``BatchedSpeculativeEngine`` over its own rows and (paged) its own
     private block arena: shard-local free lists, block tables, admission
-    FIFO, pressure reclamation and eviction, its pool placed on the
-    weights' device (launch/sharding.pool_shardings).
+    FIFO, pressure reclamation and eviction.
 
     The only cross-shard state is the scheduler: ``submit()`` routes each
     request to a shard that can admit it now (``can_admit``), bin-packing on
@@ -1172,12 +1250,30 @@ class ShardedBatchedSpeculativeEngine:
     (``pad_slots``); a total ``pool_blocks`` is split evenly (ceil) so every
     shard's arena gates its own admissions.
 
-    Placement: every shard lives on the weights' device, so the tree
-    strategy commits every verified shard in ONE grouped commit call
-    (``_commit_shards``).  Shards on other cards than the weights (one copy
-    of the weights and one stream of launches per card) are ROADMAP queue 1
-    item 8b.  The JAX engine's ``jit_compile_count`` has no meaning in eager
-    torch and is left out.
+    Placement, ``group=None``: every shard lives on the weights' device
+    (launch/sharding.pool_shardings), so the tree strategy commits every
+    verified shard in ONE grouped commit call (``_commit_shards``).
+
+    ``group``, a process group of exactly ``data_shards`` ranks: one shard a
+    rank, JAX's shards on their own devices.  Rank r builds shard r only, on
+    its own device (``launch.mesh.rank_shard``: ``cuda:(LOCAL_RANK %
+    device_count)``, or the CPU), which must hold its weights; every other
+    shard is a ``ShardRecord`` mirror.  Every rank runs ``submit`` and the
+    routing on the same arrival sequence, so every rank takes the
+    single-process engine's decisions, and only the owner queues the
+    request.  A step begins, verifies, commits (alone: a shard a rank never
+    groups, as JAX commits shard by shard when the shards are not on one
+    device) and retires each rank's own shard, then makes ONE exchange
+    (``all_gather_object``) of each shard's events, finished payloads and
+    record; no logits, KV or hidden state crosses ranks.  A submit that
+    finishes a begun-ahead step whose boundary evicted makes one more.
+    ``exchanges`` counts them by kind ("step", "submit", "pipeline").  A
+    rank that raises inside an exchanged phase still joins the exchange,
+    and every rank then raises.  ``run()``, ``step()``'s events,
+    ``finished``, ``counters``, ``pool_occupancy()`` and ``has_work()``
+    answer from the exchanged state, the same on every rank; ``queue`` and
+    ``streams`` hold this rank's shard only.  The JAX engine's
+    ``jit_compile_count`` has no meaning in eager torch and is left out.
     """
 
     def __init__(self, target_cfg, target_params, draft_cfg, draft_params,
@@ -1185,21 +1281,35 @@ class ShardedBatchedSpeculativeEngine:
                  selector=None, n_slots: int = 4, data_shards: int = 2,
                  paged: bool = True, block_size: int = 64,
                  pool_blocks: int | None = None, pipeline: bool = True,
-                 ragged=True):
+                 ragged=True, group=None):
         if data_shards < 1:
             raise ValueError(f"need at least one shard, got {data_shards}")
         self.data_shards = data_shards
         self.n_slots = pad_slots(n_slots, data_shards)
-        per_slots = self.n_slots // data_shards
         per_blocks = -(-pool_blocks // data_shards) if paged and pool_blocks is not None else None
-        self.shards = [
-            BatchedSpeculativeEngine(target_cfg, target_params, draft_cfg, draft_params, ecfg, sampling,
-                                     selector=selector, n_slots=per_slots, paged=paged, block_size=block_size,
-                                     pool_blocks=per_blocks, pipeline=pipeline,
-                                     mesh=target_params["embed"].device, shard_id=i, ragged=ragged)
-            for i in range(data_shards)
-        ]
-        s0 = self.shards[0]
+        kw = dict(selector=selector, n_slots=self.n_slots // data_shards, paged=paged, block_size=block_size,
+                  pool_blocks=per_blocks, pipeline=pipeline, ragged=ragged)
+        args = (target_cfg, target_params, draft_cfg, draft_params, ecfg, sampling)
+        self.group, self.rank = group, None
+        if group is None:
+            self.shards = [BatchedSpeculativeEngine(*args, mesh=target_params["embed"].device, shard_id=i, **kw)
+                           for i in range(data_shards)]
+            self.local = self.shards[0]
+        else:
+            world = dist.get_world_size(group)
+            if world != data_shards:
+                raise ValueError(f"one shard a rank: the process group has {world} ranks for {data_shards} shards")
+            held = target_params["embed"].device
+            self.rank, device = rank_shard(held.type, group)
+            if held != device:
+                raise ValueError(f"rank {self.rank} serves shard {self.rank} from {device}, but its weights are "
+                                 f"on {held}: draw or move them there")
+            self.local = BatchedSpeculativeEngine(*args, mesh=device, shard_id=self.rank, **kw)
+            self.records = [ShardRecord.of(self.local) for _ in range(data_shards)]
+            self.shards = list(self.records)
+            self.shards[self.rank] = self.local
+            self.exchanges = {"step": 0, "submit": 0, "pipeline": 0}
+        s0 = self.local
         self.paged, self.strategy, self.pipeline = s0.paged, s0.strategy, pipeline
         self.ecfg = ecfg
         if s0.paged:
@@ -1213,7 +1323,8 @@ class ShardedBatchedSpeculativeEngine:
         # routed request, pruned against _local at submit()
         self._resident: dict[int, tuple[int, int]] = {}
         # engine-level commit counters: a grouped commit belongs to no single
-        # shard (the counters property adds them to the shards' sums)
+        # shard (the counters property adds them to the shards' sums); a
+        # shard a rank never groups, so they stay 0 there
         self._counters = {"commit_calls": 0, "commit_ms": 0.0}
 
     # --------------------------------------------------------- scheduling ---
@@ -1238,14 +1349,24 @@ class ShardedBatchedSpeculativeEngine:
         new = max(cur, tpad)
         return (new - tpad) + len(res) * (new - cur)
 
+    def _can_admit(self, si: int, prompt_len: int) -> bool:
+        if self.group is None:
+            return self.shards[si].can_admit(prompt_len)
+        return self.records[si].can_admit(self.local._admit_need(prompt_len) if self.paged else None)
+
+    def _load(self, si: int) -> int:
+        """Resident + queued requests of shard ``si``."""
+        if self.group is not None:
+            return self.records[si].streams + self.records[si].queue
+        return len(self.shards[si].streams) + len(self.shards[si].queue)
+
     def _route(self, prompt_len: int, tpad: int) -> int:
         """The shard that can admit now at the least bin-packing cost; load
         (resident + queued, then the lowest shard id) breaks ties, and picks
         among all shards when none can admit (the request queues there)."""
-        admitting = [i for i, sh in enumerate(self.shards) if sh.can_admit(prompt_len)]
+        admitting = [i for i in range(self.data_shards) if self._can_admit(i, prompt_len)]
         pool = admitting or range(self.data_shards)
-        return min(pool, key=lambda i: (self._pack_cost(i, tpad),
-                                        len(self.shards[i].streams) + len(self.shards[i].queue), i))
+        return min(pool, key=lambda i: (self._pack_cost(i, tpad), self._load(i), i))
 
     def shard_of(self, rid: int) -> int:
         """The shard a live (unfinished) request was routed to."""
@@ -1255,12 +1376,19 @@ class ShardedBatchedSpeculativeEngine:
         """Route to a shard, bin-packing on ``action_hint`` (the request's
         expected (K, L1, L2) action; by default the engine config's, under
         which routing is least-loaded), and queue it there.  Hints steer
-        placement only: the selector still decides every step's action."""
+        placement only: the selector still decides every step's action.
+        With a group every rank must submit the same requests in the same
+        order."""
         self._resident = {r: v for r, v in self._resident.items() if r in self._local}
         hint = tuple(action_hint) if action_hint is not None else (self.ecfg.K, self.ecfg.L1, self.ecfg.L2)
         tpad = self._action_tpad(hint)
+        if self.group is not None:
+            self.local.check_prompt(prompt)  # every rank refuses what the owner would
         si = self._route(len(prompt), tpad)
-        lrid = self.shards[si].submit(prompt, max_new=max_new, seed=seed)
+        if self.group is None:
+            lrid = self.shards[si].submit(prompt, max_new=max_new, seed=seed)
+        else:
+            lrid = self._submit_rank(si, prompt, max_new, seed)
         rid = self._next_rid
         self._next_rid += 1
         self._local[rid] = (si, lrid)
@@ -1268,20 +1396,94 @@ class ShardedBatchedSpeculativeEngine:
         self._resident[rid] = (si, tpad)
         return rid
 
+    def _submit_rank(self, si: int, prompt, max_new, seed) -> int:
+        """Queue on shard ``si``'s owner and apply the submit to its record
+        on every rank; the owner's next exchange checks the record against
+        its shard."""
+        lrid = self.records[si].next_rid
+        if self.records[si].submitted():
+            if si == self.rank:
+                self.local.submit(prompt, max_new=max_new, seed=seed)
+            return lrid
+        _, finished = self._exchange("submit", lambda: self.local.submit(prompt, max_new=max_new, seed=seed)
+                                     if si == self.rank else None)
+        self._settle(finished)
+        return lrid
+
     def _collect(self, si: int, events: list[dict]) -> list[dict]:
         """Rewrite a shard's events and finished payloads to global rids."""
-        out = []
-        for ev in events:
-            ev = dict(ev)
-            ev["rid"] = self._global[(si, ev["rid"])]
-            out.append(ev)
-        sh = self.shards[si]
-        while sh.finished:
-            lrid, info = sh.finished.popitem()
-            rid = self._global.pop((si, lrid))
-            del self._local[rid]
-            self.finished[rid] = info
+        out = self._global_events(si, events)
+        self._settle({si: _take_finished(self.shards[si])})
         return out
+
+    def _global_events(self, si: int, events: list[dict]) -> list[dict]:
+        return [{**ev, "rid": self._global[(si, ev["rid"])]} for ev in events]
+
+    def _settle(self, finished: dict[int, dict]) -> None:
+        """Move shards' finished payloads ({shard: {local rid: payload}}) to
+        ``finished`` under global rids."""
+        for si, payloads in finished.items():
+            for lrid, info in payloads.items():
+                rid = self._global.pop((si, lrid))
+                del self._local[rid]
+                self.finished[rid] = info
+
+    # -------------------------------------------------- one shard a rank ---
+
+    def _exchange(self, kind: str, fn):
+        """Run ``fn`` on this rank's shard, then ONE ``all_gather_object``
+        over the group of (error, ``fn``'s result, finished payloads,
+        record).  Returns ([every shard's result], {shard: its finished
+        payloads}) with the records updated; the caller rewrites events to
+        global rids, then ``_settle``s the payloads.  If any rank raised,
+        every rank raises after the exchange, so none waits on a rank that
+        failed."""
+        sh = self.local
+        err, out = None, None
+        try:
+            if ShardRecord.of(sh).routing() != self.records[self.rank].routing():
+                raise RuntimeError(f"shard {self.rank}'s record {self.records[self.rank].routing()} does not "
+                                   f"match the shard {ShardRecord.of(sh).routing()}: the ranks' routing diverged")
+            out = fn()
+        except Exception as e:  # re-raised below, after every rank has heard of it
+            err = e
+        mine = (None if err is None else f"{type(err).__name__}: {err}", out, _take_finished(sh),
+                None if err is not None else ShardRecord.of(sh))
+        got = [None] * self.data_shards
+        dist.all_gather_object(got, mine, group=self.group)
+        self.exchanges[kind] += 1
+        if err is not None:
+            raise err
+        failed = [(r, g[0]) for r, g in enumerate(got) if g[0] is not None]
+        if failed:
+            raise RuntimeError(f"{kind}: rank {failed[0][0]} failed: {failed[0][1]}"
+                               + (f" (and {len(failed) - 1} more ranks)" if len(failed) > 1 else ""))
+        for si, g in enumerate(got):
+            self.records[si] = g[3]
+            if si != self.rank:
+                self.shards[si] = g[3]
+        return [g[1] for g in got], {si: g[2] for si, g in enumerate(got)}
+
+    def _step_rank(self) -> list[dict]:
+        sh = self.local
+
+        def own():
+            drained, sh._drained_events = sh._drained_events, []
+            pending, sh._pending_next = sh._pending_next, None
+            if pending is None:
+                pending = sh.begin_step()
+            if pending is None:
+                return drained, []
+            v = sh.verify_step(pending)
+            sh.commit_step(v)
+            return drained, sh.retire_step(v)
+
+        outs, finished = self._exchange("step", own)
+        # the single-process order: every shard's drained events, then each shard's step
+        events = [ev for si, (drained, _) in enumerate(outs) for ev in self._global_events(si, drained)]
+        events += [ev for si, (_, retired) in enumerate(outs) for ev in self._global_events(si, retired)]
+        self._settle(finished)
+        return events
 
     # --------------------------------------------------------------- steps ---
 
@@ -1296,7 +1498,10 @@ class ShardedBatchedSpeculativeEngine:
         begun (dispatched) before any shard's verification waits on the
         device, then the verified shards commit together
         (``_commit_shards``) and retire in shard order; the retire phase
-        begins each shard's next step when pipelining."""
+        begins each shard's next step when pipelining.  With a group, each
+        rank steps its own shard and the ranks exchange once."""
+        if self.group is not None:
+            return self._step_rank()
         events = []
         pendings: list = []
         for si, sh in enumerate(self.shards):
@@ -1332,6 +1537,11 @@ class ShardedBatchedSpeculativeEngine:
 
     def drain_pipeline(self) -> list[dict]:
         """Finish every shard's begun-ahead step without beginning another."""
+        if self.group is not None:
+            outs, finished = self._exchange("pipeline", self.local.drain_pipeline)
+            events = [ev for si, evs in enumerate(outs) for ev in self._global_events(si, evs)]
+            self._settle(finished)
+            return events
         events = []
         for si, sh in enumerate(self.shards):
             events.extend(self._collect(si, sh.drain_pipeline()))
@@ -1341,8 +1551,24 @@ class ShardedBatchedSpeculativeEngine:
         """Rewind EVERY shard's begun-ahead step (each restores its own rng
         snapshots and pool state); returns how many shards rewound one.  All
         must land, or the next boundary would replay some shards' randomness
-        against others' consumed state."""
+        against others' consumed state: with a group, every rank rewinds or
+        every rank raises."""
+        if self.group is not None:
+            outs, finished = self._exchange("pipeline", self.local.abort_pipeline)
+            self._settle(finished)
+            return sum(outs)
         return sum(sh.abort_pipeline() for sh in self.shards)
+
+    def has_work(self) -> bool:
+        """Whether any shard has a queued request or a live stream."""
+        if self.group is not None:
+            return any(r.queue or r.streams for r in self.records)
+        return any(sh.queue or sh.streams for sh in self.shards)
+
+    def _has_streams(self) -> bool:
+        if self.group is not None:
+            return any(r.streams for r in self.records)
+        return any(sh.streams for sh in self.shards)
 
     def run(self) -> dict[int, dict]:
         """Step until every submitted request finished; returns
@@ -1356,13 +1582,13 @@ class ShardedBatchedSpeculativeEngine:
                 done[rid] = info
 
         drain()
-        while any(sh.queue or sh.streams for sh in self.shards):
+        while self.has_work():
             before = len(done)
             self.step()
             drain()
-            if not any(sh.queue or sh.streams for sh in self.shards):
+            if not self.has_work():
                 break
-            if not (any(sh.streams for sh in self.shards) or len(done) > before):
+            if not (self._has_streams() or len(done) > before):
                 raise RuntimeError("sharded scheduler stalled")
         return done
 
@@ -1377,14 +1603,15 @@ class ShardedBatchedSpeculativeEngine:
     @property
     def counters(self) -> dict:
         """The shards' counters summed, plus the engine-level grouped-commit
-        counters.  A read-only view: mutate through ``reset_counters`` or the
-        shards' own dicts."""
+        counters (with a group: every shard's as of the last exchange, the
+        same on every rank; ``commit_calls`` is then each shard's own
+        commits, and none is grouped).  A read-only view: mutate through
+        ``reset_counters`` or the shards' own dicts."""
         out: dict = {}
-        for sh in self.shards:
-            for key, val in sh.counters.items():
+        per = [r.counters for r in self.records] if self.group is not None else [sh.counters for sh in self.shards]
+        for counters in per + [self._counters]:
+            for key, val in counters.items():
                 out[key] = out.get(key, type(val)()) + val
-        for key, val in self._counters.items():
-            out[key] = out.get(key, type(val)()) + val
         return out
 
     @property
@@ -1394,35 +1621,46 @@ class ShardedBatchedSpeculativeEngine:
         return self._counters["commit_calls"]
 
     def reset_counters(self, keys) -> None:
-        for sh in self.shards:
+        """Zero ``keys`` in every shard's counters (with a group, this rank's
+        shard's and every record's) and the engine-level ones."""
+        per = [sh.counters for sh in self._real()]
+        if self.group is not None:
+            per += [r.counters for r in self.records]
+        for counters in per:
             for key in keys:
-                sh.counters[key] = type(sh.counters[key])()
+                counters[key] = type(counters[key])()
         for key in keys:
             if key in self._counters:
                 self._counters[key] = type(self._counters[key])()
 
     @property
     def profile_commits(self) -> bool:
-        return self.shards[0].profile_commits
+        return self.local.profile_commits
 
     @profile_commits.setter
     def profile_commits(self, value: bool) -> None:
-        for sh in self.shards:
+        for sh in ([self.local] if self.group is not None else self.shards):
             sh.profile_commits = value
 
     @property
     def queue(self) -> list:
-        """Every shard's queued requests (routing already fixed their shard)."""
-        return [req for sh in self.shards for req in sh.queue]
+        """Every shard's queued requests (routing already fixed their shard);
+        with a group, this rank's shard's."""
+        return [req for sh in self._real() for req in sh.queue]
 
     @property
     def streams(self) -> dict:
-        """(shard, slot) -> stream state over every shard."""
-        return {(si, s): st for si, sh in enumerate(self.shards) for s, st in sh.streams.items()}
+        """(shard, slot) -> stream state over every shard; with a group, over
+        this rank's shard."""
+        return {(sh.shard_id, s): st for sh in self._real() for s, st in sh.streams.items()}
+
+    def _real(self) -> list[BatchedSpeculativeEngine]:
+        return [self.local] if self.group is not None else self.shards
 
     def pool_occupancy(self) -> dict:
         """Arena occupancy in the unsharded schema, plus ``per_shard``."""
-        per = [sh.pool_occupancy() for sh in self.shards]
+        per = [r.occupancy for r in self.records] if self.group is not None else \
+            [sh.pool_occupancy() for sh in self.shards]
         out: dict = {}
         for name in ("target", "draft"):
             shards = [p[name] for p in per if name in p]

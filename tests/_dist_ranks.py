@@ -1,6 +1,8 @@
-"""The rank side of tests/test_torch_distributed.py.
+"""The rank side of tests/test_torch_distributed.py and
+tests/test_torch_rank_shards.py.
 
-``spawn`` runs a function of this module in ``world`` spawned processes,
+``spawn`` (or ``Ranks``, which lets the caller work while the ranks run)
+runs a function of this module in ``world`` spawned processes,
 joined in one ``gloo`` process group through a file; each process imports
 only torch and the port (neither JAX nor pytest), and what rank 0 returns
 comes back to the caller.  A rank that raises fails the call with its
@@ -31,31 +33,45 @@ def _main(fn_name: str, rank: int, world: int, init_file: str, args: tuple, out)
         out.put((rank, False, traceback.format_exc()))
 
 
+class Ranks:
+    """``world`` spawned processes running ``fn_name(rank, *args)``; the
+    caller may work meanwhile and collects with ``result``."""
+
+    def __init__(self, fn_name: str, world: int, init_file: str, args: tuple = ()):
+        ctx = multiprocessing.get_context("spawn")
+        self.world, self.out = world, ctx.Queue()
+        self.procs = [ctx.Process(target=_main, args=(fn_name, r, world, init_file, args, self.out), daemon=True)
+                      for r in range(world)]
+        for p in self.procs:
+            p.start()
+
+    def result(self, timeout: float = 200.0):
+        """Rank 0's return value; raises if a rank failed, or if the ranks
+        did not all finish within ``timeout`` seconds; every process is
+        ended either way."""
+        results = {}
+        try:
+            for _ in range(self.world):
+                rank, ok, payload = self.out.get(timeout=timeout)
+                if not ok:
+                    raise RuntimeError(f"rank {rank} failed:\n{payload}")
+                results[rank] = payload
+        except queue.Empty:
+            raise TimeoutError(f"{self.world - len(results)} of {self.world} ranks did not finish within "
+                               f"{timeout} s") from None
+        finally:
+            for p in self.procs:
+                p.join(timeout=10)
+                if p.is_alive():
+                    p.kill()
+                    p.join(timeout=10)
+        return results[0]
+
+
 def spawn(fn_name: str, world: int, init_file: str, args: tuple = (), timeout: float = 200.0):
     """Rank 0's return value of ``fn_name(rank, *args)`` run on ``world``
     ranks."""
-    ctx = multiprocessing.get_context("spawn")
-    out = ctx.Queue()
-    procs = [ctx.Process(target=_main, args=(fn_name, r, world, init_file, args, out), daemon=True)
-             for r in range(world)]
-    for p in procs:
-        p.start()
-    results = {}
-    try:
-        for _ in range(world):
-            rank, ok, payload = out.get(timeout=timeout)
-            if not ok:
-                raise RuntimeError(f"rank {rank} failed:\n{payload}")
-            results[rank] = payload
-    except queue.Empty:
-        raise TimeoutError(f"{world - len(results)} of {world} ranks did not finish within {timeout} s") from None
-    finally:
-        for p in procs:
-            p.join(timeout=10)
-            if p.is_alive():
-                p.kill()
-                p.join(timeout=10)
-    return results[0]
+    return Ranks(fn_name, world, init_file, args).result(timeout)
 
 
 def _mesh(shape: tuple):
@@ -140,4 +156,126 @@ def pins_and_pool(rank: int) -> dict:
         res.update(pool_dtensor=isinstance(k, DTensor), pool_local=tuple(k.to_local().shape),
                    pool_equal=all(np.array_equal(a, b) for a, b in
                                   zip(_flat(gather(placed)).values(), _flat(cache).values())))
+    return res
+
+
+def _counted_gathers():
+    """Count ``all_gather_object`` calls from here on (the engine's exchanges
+    go through the module attribute)."""
+    calls = [0]
+    gather_object = dist.all_gather_object
+
+    def counted(*a, **kw):
+        calls[0] += 1
+        return gather_object(*a, **kw)
+
+    dist.all_gather_object = counted
+    return calls
+
+
+def _rank_engine(weights: str, arch: str, ecfg_kw: dict, engine_kw: dict, target_device="cpu"):
+    """A ShardedBatchedSpeculativeEngine over the whole group, one shard a
+    rank, serving the float32 smoke ``arch`` and its draft with JAX's
+    parameters (a pickle of the two numpy trees at ``weights``); the
+    target's are moved to ``target_device``."""
+    import pickle
+
+    from repro_torch import bridge
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch.serve import make_draft_cfg
+    from repro_torch.serving.batch_engine import ShardedBatchedSpeculativeEngine
+    from repro_torch.serving.engine import EngineConfig
+
+    def to(tree):
+        return {k: to(v) for k, v in tree.items()} if isinstance(tree, dict) else tree.to(target_device)
+
+    with open(weights, "rb") as f:
+        np_tp, np_dp = pickle.load(f)
+    cfg = get_smoke(arch).replace(dtype="float32")
+    tp = to(bridge.params_from_jax(np_tp, device="cpu", dtype=torch.float32))
+    dp = bridge.params_from_jax(np_dp, device="cpu", dtype=torch.float32)
+    return ShardedBatchedSpeculativeEngine(cfg, tp, make_draft_cfg(cfg), dp, EngineConfig(**ecfg_kw),
+                                           group=dist.group.WORLD, **engine_kw)
+
+
+def serve_plan(eng, plan, busy=None) -> dict:
+    """Serve ``plan`` ([("submit", [(prompt, max_new, seed), ...]) or
+    ("steps", n)], then steps while ``busy()``, by default
+    ``eng.has_work()``) through a sharded engine, the port's or JAX's:
+    each request's shard at its submit, tokens and reason; the summed
+    counters, the engine-level ones and the pool occupancy after every
+    step; the steps taken."""
+    rids, routing, occ, steps = [], [], [], 0
+
+    def step():
+        nonlocal steps
+        eng.step()
+        steps += 1
+        occ.append(eng.pool_occupancy())
+
+    for kind, arg in plan:
+        if kind == "submit":
+            for prompt, max_new, seed in arg:
+                rids.append(eng.submit(list(prompt), max_new=max_new, seed=seed))
+                routing.append(eng.shard_of(rids[-1]))
+        else:
+            for _ in range(arg):
+                step()
+    while (busy or eng.has_work)():
+        step()
+    outs = [(eng.finished[r]["tokens"], eng.finished[r]["reason"]) for r in rids]
+    return {"outs": outs, "routing": routing, "counters": eng.counters, "engine_counters": dict(eng._counters),
+            "occupancy": occ, "steps": steps}
+
+
+def rank_shards_tree(rank: int, weights: str, arch: str, ecfg_kw: dict, engine_kw: dict, plan, launcher_argv):
+    """One shard a rank on the tree strategy: ``plan`` through the rank
+    engine (with every ``all_gather_object`` counted), then the refusals
+    (a group whose size is not ``data_shards``; weights away from the
+    rank's device), then a rank that raises in the middle of a run (rank
+    1's verification), then the launcher's ``--distributed`` on
+    ``launcher_argv`` with rank 0's output captured."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import serve
+
+    calls = _counted_gathers()
+    eng = _rank_engine(weights, arch, ecfg_kw, engine_kw)
+    res = serve_plan(eng, plan)
+    res.update(gathers=calls[0], exchanges=dict(eng.exchanges), local_counters=dict(eng.local.counters),
+               n_shards=len(eng.shards), held=type(eng.shards[1 - rank]).__name__)
+    refusals = {}
+    for name, kw, device in (("group size", dict(engine_kw, data_shards=3), "cpu"),
+                             ("weights' device", engine_kw, "meta")):
+        try:
+            _rank_engine(weights, arch, ecfg_kw, kw, target_device=device)
+        except ValueError as e:
+            refusals[name] = str(e)
+    res["refusals"] = refusals
+    failing = _rank_engine(weights, arch, ecfg_kw, engine_kw)
+    if rank == 1:
+        def broken(pending):
+            raise RuntimeError("verification failed on purpose")
+        failing.local.verify_step = broken
+    try:
+        serve_plan(failing, plan)
+        res["failure"] = None
+    except RuntimeError as e:
+        res["failure"] = str(e)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        serve.main(launcher_argv)
+    res["launcher"] = out.getvalue()
+    return res
+
+
+def rank_shards_replay(rank: int, weights: str, arch: str, ecfg_kw: dict, engine_kw: dict, plan):
+    """One shard a rank on the replay strategy: ``plan`` through the rank
+    engine."""
+    calls = _counted_gathers()
+    eng = _rank_engine(weights, arch, ecfg_kw, engine_kw)
+    res = serve_plan(eng, plan)
+    res.update(gathers=calls[0], exchanges=dict(eng.exchanges), n_slots=eng.n_slots,
+               local_slots=eng.local.n_slots)
     return res

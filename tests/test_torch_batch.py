@@ -191,7 +191,7 @@ def test_submit_mid_run_rewinds_or_drains_exactly(models):
 
 def test_batched_engine_refuses_what_is_not_ported(models):
     _, (tt, ttp, td, tdp) = models
-    with pytest.raises(NotImplementedError, match="queue 1 item 8b"):  # one pool over several devices
+    with pytest.raises(NotImplementedError, match="queue 1 item 8c"):  # one pool over several devices
         tbe.BatchedSpeculativeEngine(tt, ttp, td, tdp, teng.EngineConfig(), mesh=["cpu", "cpu"])
     # refused as in JAX: the encdec/vlm prefill inputs are single-stream
     for arch_type in ("encdec", "vlm"):
