@@ -33,7 +33,11 @@
    row at length 0), alone at B 128 against SDPA, and paged on phase 4's
    arena and on rows of 512 blocks; their outputs are averages over up to
    32768 slots (~0.02-0.06), so each batch row is held to TOLERANCE times
-   its own largest |output| (DECODE_TOLERANCE_RULE).  The tree kernels'
+   its own largest |output| (DECODE_TOLERANCE_RULE); and at the other
+   head_dims the repo's models use (DECODE_WIDTHS: 32 and 48 at
+   examples/serve_speculative.py's heads, 256 at recurrentgemma-2b's under
+   its 2048-slot window, each with a window and without, dense and paged
+   on a 4096-slot cache).  The tree kernels'
    head_dim-256 instances run at recurrentgemma-2b's heads (H 10, Hkv 1)
    under its 2048-slot window: the single-stream trunk and commit passes
    (on a 1024-slot ring and past the window on a 4096-slot one), phase
@@ -94,15 +98,18 @@
    Launch counts are checked in every run as in phases 3-5.
 7. The recurrent families on the replay strategy, at full width, after the
    earlier models are freed: (a) mamba2-2.7b (d 2560, 80 SSD heads of 64,
-   state 128; its 64 layers cut to 32 since PR 22, the draft the full
-   config's) and (b) recurrentgemma-2b (26 layers: 8 groups
-   of (rec, rec, local-attn) and a tail of 2 rec layers, 10/1 heads of
-   256, window 2048), each with its make_draft_cfg draft: one specinfer
+   state 128; its 64 layers cut to 32 in PR 22 and to 16 in PR 24, the
+   draft the full config's) and (b) recurrentgemma-2b (its 26 layers, 8
+   groups of (rec, rec, local-attn) and a tail of 2 rec layers, cut to 4
+   groups and the tail in PR 24; 10/1 heads of 256, window 2048; the draft
+   the full config's), each with its make_draft_cfg draft: one specinfer
    (2, 2, 2) request of 32 tokens through SpeculativeEngine, then phase
-   4's traffic through BatchedSpeculativeEngine, pipelined then
-   synchronous (tokens equal), a profile of one step traced on the device
-   only (run first: it also warms the pair's shapes), peak memory; launch counts
-   exact (none for mamba2, which has no attention; for the hybrid, its 8
+   4's traffic through BatchedSpeculativeEngine, pipelined (the
+   synchronous runs were cut in PR 24 to make room for phase 8g: the
+   replay strategy's pipelined == synchronous tokens are held on the CPU
+   by tests/test_torch_replay.py), a profile of one step traced on the
+   device only (run first: it also warms the pair's shapes), peak memory; launch counts
+   exact (none for mamba2, which has no attention; for the hybrid, its 4
    target and 4 draft attention layers times the passes).  (c) One
    hybrid request of a 2600-token prompt on a 4096-slot ring, past the
    2048-slot window, so the tree kernel skips the dead chunks below it.
@@ -135,7 +142,19 @@
    and each kernel's launches summed over the ranks equal 8a's pipelined
    run; one exchange a step and no other collective; a rank that fails or
    hangs fails the phase; each rank's peak and wall and the aggregate
-   tok/s reported beside 8a's.
+   tok/s reported beside 8a's; (g) one pool over a data mesh: 2 spawned
+   gloo rank processes sharing the card, each building
+   BatchedSpeculativeEngine(..., mesh=make_data_mesh(2)) and holding rows
+   [4 r, 4 r + 4) of the 8: (a) phase 4's models (drawn on each rank from
+   phase 4's seeds) and traffic, bf16, paged, ragged auto, pipelined: both
+   ranks return the same tokens and reasons; each rank's exchanges equal
+   the design's count (one a draft pass, one a target pass, one a boundary
+   that admits, no other collective); each kernel's launches on each rank
+   equal the single-process engine's count for the same passes, less the
+   passes the rank holds no row of (other ranks' admission prefills, its
+   idle ragged passes); matches against phase 4, each rank's peak and
+   wall and the aggregate tok/s reported; (b) 8e's float32 cut through
+   the same: tokens equal 8e's single-process engine's, 12 of 12.
 9. The encoder-decoder and VLM families, each at full width with its
    make_draft_cfg draft, bf16, one stream, after every
    earlier model is freed: (a) whisper-medium (24 + 24 layers, d 1024,
@@ -189,7 +208,8 @@
    layer, launches exact) and of one granite-3-2b train step of 1 x 1024
    tokens (no kernel), reported as ratios.  recurrentgemma-2b's prefill_32k
    and train_4k entries run cut to 12 of its 26 layers (DRY_CUT_LAYERS:
-   at full depth they alone bound the table, at ~116 s on the H100's host).
+   at full depth they alone bound the table, at ~116 s on the H100's host),
+   and since PR 24 mamba2-2.7b's to 16 of its 64.
    Phase 11's worker processes also run phase 12c's dry runs.
 12. The production meshes (launch/mesh.py, launch/sharding.py,
    models/act_sharding.py, launch/train.py's make_sharded_train_step):
@@ -243,7 +263,7 @@ DECODE_TOLERANCE_RULE = "max|out - ref| of each batch row <= TOLERANCE x max|ref
 TREE_TOLERANCE_RULE = ("max|out - ref| <= TOLERANCE and, in each query row, "
                        "max|out - ref| <= TOLERANCE x max|ref| of that row")
 REPS = 25
-KERNEL_SOURCES = ["tree_attention", "paged_tree_attention", "commit_kv", "decode_attention"]
+KERNEL_SOURCES = ["tree_attention", "paged_tree_attention", "commit_kv", "decode_attention", "decode_attention_f32"]
 
 
 def log(*args):
@@ -1086,6 +1106,17 @@ DECODE_WINDOW = 8192  # long_500k's sliding-window variant (shapes.py:39-40)
 # G 4, 8 and 16: the bf16 kernel's tile of 16 query heads padded, half padded, full
 DECODE_HEADS = {"granite-8b heads": (32, 8), "llama-3-70b heads": (64, 8), "qwen3-moe heads": (64, 4)}
 DECODE_VARIANTS = [(0, False), (DECODE_WINDOW, False), (0, True), (DECODE_WINDOW, True)]  # (window, a row at 0)
+# the other head_dims the repo's models use: examples/serve_speculative.py's target (6 heads over 2 of 32) and
+# draft (2 over 1 of 48), and recurrentgemma-2b's local attention (10 over 1 of 256, its 2048-slot window),
+# each on a 4096-slot cache (recurrentgemma's 7c ring), with and without a window: (heads, H, Hkv, D, window)
+DECODE_WIDTHS = [("serve_speculative.py target heads", 6, 2, 32, 0),
+                 ("serve_speculative.py target heads", 6, 2, 32, 1024),
+                 ("serve_speculative.py draft heads", 2, 1, 48, 0),
+                 ("serve_speculative.py draft heads", 2, 1, 48, 1024),
+                 ("recurrentgemma-2b heads", 10, 1, 256, 0),
+                 ("recurrentgemma-2b heads", 10, 1, 256, 2048)]
+WIDTH_S = 4096
+WIDTH_LENGTHS = [1, 300, 1000, 2047, 2600, 3000, 4000, 4096]  # the paged rows'; below, past and at the window
 
 
 def _decode_lengths(torch, B, S, zero_row):
@@ -1140,7 +1171,8 @@ def decode_kernel_rows(torch, dtype, gen, timer):
     dense at decode_32k's seq (B 16, S 32768) with each of DECODE_HEADS,
     window 0 and 8192, lengths >= 1 (SDPA beside it) or
     with a row at length 0; paged on phase 4's arena (64-slot blocks, 16 per
-    row, 8 rows, unmapped tails) and on 8 rows of 512 blocks (32768 slots)."""
+    row, 8 rows, unmapped tails) and on 8 rows of 512 blocks (32768 slots);
+    then both at the head_dims 32, 48 and 256 (DECODE_WIDTHS)."""
     from repro_torch.kernels.decode_attention import decode_attention, paged_decode_attention
     from repro_torch.kernels.ref import decode_attention_ref, paged_decode_attention_ref, paged_gather_kv_ref
 
@@ -1227,6 +1259,49 @@ def decode_kernel_rows(torch, dtype, gen, timer):
                timer(lambda: paged_decode_attention_ref(q, k, v, tbl, lengths, window)), None,
                None if zero_row else timer(composed),
                decode_bound(torch, q, k, lengths, nb * BLOCK, window, tbl.numel() * 4))
+        del k, v
+
+    # the head_dims 32, 48 and 256: dense (B 16, lengths >= 1, SDPA beside it) and paged (8 rows of
+    # WIDTH_S / BLOCK blocks, unmapped tails, gather+SDPA beside it)
+    nb = WIDTH_S // BLOCK
+    for heads_name, H, Hkv, D, window in DECODE_WIDTHS:
+        k = torch.randn(B, WIDTH_S, Hkv, D, generator=gen, device="cuda").to(dtype)
+        v = torch.randn(B, WIDTH_S, Hkv, D, generator=gen, device="cuda").to(dtype)
+        q = torch.randn(B, 1, H, D, generator=gen, device="cuda").to(dtype)
+        lengths = _decode_lengths(torch, B, WIDTH_S, False)
+        case = f"S {WIDTH_S}, {heads_name}, D {D}, window {window}, lengths >= 1"
+        out = decode_attention(q, k, v, lengths, window=window)
+        torch.cuda.synchronize()
+        err = _check_decode(torch, "decode_attention", case, dname, out, decode_attention_ref(q, k, v, lengths, window))
+        record("decode_attention", case, {"B": B, "H": H, "Hkv": Hkv, "S": WIDTH_S, "D": D, "window": window},
+               err, timer.wrapper(lambda: decode_attention(q, k, v, lengths, window=window)),
+               timer(lambda: decode_attention_ref(q, k, v, lengths, window)),
+               timer(lambda: _sdpa_decode(q, k, v, lengths, window)), None,
+               decode_bound(torch, q, k, lengths, WIDTH_S, window, 0))
+        Bp = len(WIDTH_LENGTHS)
+        nblk = Bp * nb + 1
+        k = torch.randn(nblk, BLOCK, Hkv, D, generator=gen, device="cuda").to(dtype)
+        v = torch.randn(nblk, BLOCK, Hkv, D, generator=gen, device="cuda").to(dtype)
+        tbl = (torch.randperm(nblk - 1, generator=gen, device="cuda") + 1).reshape(Bp, nb).to(torch.int32)
+        for b, n in enumerate(WIDTH_LENGTHS):
+            tbl[b, -(-n // BLOCK):] = -1
+        lengths = torch.tensor(WIDTH_LENGTHS, dtype=torch.int32, device="cuda")
+        q = torch.randn(Bp, 1, H, D, generator=gen, device="cuda").to(dtype)
+        case = f"{nb}-block rows, {heads_name}, D {D}, window {window}, unmapped tails, lengths >= 1"
+        out = paged_decode_attention(q, k, v, tbl, lengths, window=window)
+        torch.cuda.synchronize()
+        err = _check_decode(torch, "paged_decode_attention", case, dname, out,
+                            paged_decode_attention_ref(q, k, v, tbl, lengths, window))
+
+        def composed():
+            kd, vd = paged_gather_kv_ref(k, v, tbl)
+            return _sdpa_decode(q, kd, vd, lengths, window)
+
+        record("paged_decode_attention", case,
+               {"B": Bp, "H": H, "Hkv": Hkv, "D": D, "block": BLOCK, "max_blocks": nb, "window": window},
+               err, timer.wrapper(lambda: paged_decode_attention(q, k, v, tbl, lengths, window=window)),
+               timer(lambda: paged_decode_attention_ref(q, k, v, tbl, lengths, window)), None, timer(composed),
+               decode_bound(torch, q, k, lengths, WIDTH_S, window, tbl.numel() * 4))
         del k, v
     torch.cuda.empty_cache()
     return rows
@@ -2250,9 +2325,11 @@ def phase_nde(torch, smi):
 # ---------------------------------------------- phase 7: the recurrent families ---
 
 RECURRENT_ARCHES = ("mamba2-2.7b", "recurrentgemma-2b")
-# phase 7a's target cut from 64 layers to 32, to keep the script within half its time limit
-# once phase 12 was added (PR 22); its draft is the full config's
-RECURRENT_TARGET_LAYERS = {"mamba2-2.7b": 32}
+# the targets' depth cut to keep the script near half its time limit (the drafts are the full
+# configs'): mamba2-2.7b's 64 layers to 32 once phase 12 was added (PR 22), then to 16, and
+# recurrentgemma-2b's 26 to 14 (4 groups of (rec, rec, local-attn) and the tail of 2), once
+# phase 8g was added (PR 24; 8b serves the same cut pair)
+RECURRENT_TARGET_LAYERS = {"mamba2-2.7b": 16, "recurrentgemma-2b": 14}
 LONG_PROMPT, LONG_RING = 2600, 4096  # 7c: a prompt past the 2048-slot window, on a ring that holds it
 
 
@@ -2382,25 +2459,20 @@ def phase_recurrent(torch, then=None):
             f"{c['draft_calls']}, tree_attention launches {launches} (= {layers[0]} x (1 + {c['target_calls']} "
             f"+ {c['blocks']}) + {layers[1]} x (1 + {c['draft_calls']})); {outs[0]}")
 
+        # pipelined only: the synchronous runs (~42 s of the script) were cut in PR 24 for phase 8g
         tokens = {}
-        for mode, pipeline in (("pipelined", True), ("sync", False)):
-            tokens[mode], res[mode] = _serve_batched(torch, engine(pipeline), prompts, max_new, seeds, layers,
-                                                     need_both=False)
-            r = res[mode]
-            batched_runs.append(r["launches"])
-            log(f"  {mode}: {r['tokens']} tokens in {r['wall_s']:.4f} s = {r['tokens_per_s']:.3f} tok/s aggregate, "
-                f"per-stream median {r['per_stream_tokens_per_s_median']:.3f} tok/s, block_efficiency "
-                f"{r['block_efficiency']:.4f}, {r['steps']} steps, ahead {r['pipeline_ahead']} stalls "
-                f"{r['pipeline_stalls']}, launches {r['launches']}")
-        if tokens["pipelined"] != tokens["sync"]:
-            bad = [j for j, (a, b) in enumerate(zip(tokens["pipelined"], tokens["sync"])) if a != b]
-            raise RuntimeError(f"{arch}: pipelined tokens differ from synchronous tokens for requests {bad}")
+        tokens["pipelined"], r = _serve_batched(torch, engine(True), prompts, max_new, seeds, layers, need_both=False)
+        res["pipelined"] = r
+        batched_runs.append(r["launches"])
+        log(f"  pipelined: {r['tokens']} tokens in {r['wall_s']:.4f} s = {r['tokens_per_s']:.3f} tok/s aggregate, "
+            f"per-stream median {r['per_stream_tokens_per_s_median']:.3f} tok/s, block_efficiency "
+            f"{r['block_efficiency']:.4f}, {r['steps']} steps, ahead {r['pipeline_ahead']} stalls "
+            f"{r['pipeline_stalls']}, launches {r['launches']}")
         res["max_memory_allocated"] = torch.cuda.max_memory_allocated()
-        log(f"  pipelined tokens == sync tokens for all {N_REQUESTS} requests; max_memory_allocated "
-            f"{res['max_memory_allocated'] / 2**30:.3f} GiB")
+        log(f"  max_memory_allocated {res['max_memory_allocated'] / 2**30:.3f} GiB")
         res["seconds"] = time.perf_counter() - t_arch
         parts = {"profile": res["profile"]["seconds"], "single": res["single"]["wall_s"],
-                 "pipelined": res["pipelined"]["wall_s"], "sync": res["sync"]["wall_s"]}
+                 "pipelined": res["pipelined"]["wall_s"]}
         log(f"  phase 7{'ab'[i]} took {res['seconds']:.1f} s: " + ", ".join(f"{k} {v:.1f} s" for k, v in parts.items())
             + f", the rest (weights, engines, admissions) {res['seconds'] - sum(parts.values()):.1f} s")
 
@@ -2666,6 +2738,228 @@ def phase_rank_shards(torch, a, ctx):
     return res
 
 
+# phase 8g: one pool over a data mesh of 2 gloo ranks (BatchedSpeculativeEngine(..., mesh=make_data_mesh(2)))
+MESH_RANKS = 2
+
+
+def _pool_mesh_rank(rank, n, init_file, traffic, out):
+    """One gloo rank of phase 8g (spawned): phase 4's engine settings over a
+    ``make_data_mesh(n)`` of the ranks, on cuda:(rank % cards), first on
+    full-width granite-8b + draft in bf16 (phase 4's seeds), then on 8e's
+    float32 cut; each run serves ``traffic`` ([(prompt, max_new, seed)])
+    with every kernel's launch count set to 0 just before and read just
+    after, every ``all_gather_object`` counted and timed (the wait for the
+    other rank included), every boundary that admitted counted."""
+    import gc
+    import traceback
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(SRC))
+    os.environ["LOCAL_RANK"] = str(rank)
+    try:
+        dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank, world_size=n,
+                                timeout=timedelta(seconds=RANK_TIMEOUT_S))
+        try:
+            from repro_torch.configs import get_config
+            from repro_torch.launch.mesh import make_data_mesh
+            from repro_torch.launch.serve import make_draft_cfg
+            from repro_torch.models.transformer import init_params
+            from repro_torch.serving.batch_engine import BatchedSpeculativeEngine
+            from repro_torch.serving.engine import EngineConfig, SamplingParams
+
+            gathers, gather_object = [0, 0.0], dist.all_gather_object
+
+            def counted(*a, **kw):
+                t = time.perf_counter()
+                gathers[0] += 1
+                try:
+                    return gather_object(*a, **kw)
+                finally:
+                    gathers[1] += time.perf_counter() - t
+
+            dist.all_gather_object = counted
+            torch.backends.cuda.matmul.allow_tf32 = False  # as phase 1 sets them in the parent
+            torch.backends.cudnn.allow_tf32 = False
+            torch.cuda.set_device(rank % torch.cuda.device_count())
+            mesh = make_data_mesh(n, device_type="cpu")  # gloo: two ranks may share a card
+            counters = _launch_counters()
+            full = get_config("granite-8b")
+            pairs = {"a": (full, make_draft_cfg(full)),
+                     "b": (full.replace(n_layers=F32_TARGET_LAYERS, dtype="float32"),
+                           make_draft_cfg(full).replace(n_layers=F32_DRAFT_LAYERS, dtype="float32"))}
+            payload = {"rank": rank}
+            for part, (tcfg, dcfg) in pairs.items():
+                torch.cuda.reset_peak_memory_stats()
+                tp = init_params(tcfg, torch.Generator(device="cuda").manual_seed(0))
+                dp = init_params(dcfg, torch.Generator(device="cuda").manual_seed(1))
+                eng = BatchedSpeculativeEngine(tcfg, tp, dcfg, dp, EngineConfig("specinfer", 2, 2, 2, 1024),
+                                               SamplingParams(1.0, 1.0), n_slots=N_SLOTS, paged=True,
+                                               block_size=64, pipeline=True, mesh=mesh)
+                admitting, admit = [0], eng._admit
+
+                def counted_admit():
+                    before = len(eng.streams)
+                    admit()
+                    admitting[0] += len(eng.streams) > before
+
+                eng._admit = counted_admit
+                torch.cuda.synchronize()
+                g0, s0 = gathers
+                for fn in counters.values():
+                    fn.launches = 0
+                t0 = time.perf_counter()
+                rids = [eng.submit(p, max_new=m, seed=sd) for p, m, sd in traffic]
+                steps = 0
+                while eng.queue or eng.streams:
+                    eng.step()
+                    steps += 1
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                payload[part] = {
+                    "outs": [eng.finished[r] for r in rids], "wall_s": wall, "steps": steps,
+                    "launches": {k: fn.launches for k, fn in counters.items()}, "exchanges": dict(eng.exchanges),
+                    "idle_passes": dict(eng.idle_passes), "gathers": gathers[0] - g0, "gather_s": gathers[1] - s0,
+                    "admitting": admitting[0],
+                    "counters": dict(eng.counters), "rows": [eng.tpool.lo, eng.tpool.hi],
+                    "device": str(eng.device), "layers": (tcfg.n_layers, dcfg.n_layers),
+                    "max_memory_allocated": torch.cuda.max_memory_allocated()}
+                del eng, tp, dp, admit
+                gc.collect()
+                torch.cuda.empty_cache()
+        finally:
+            dist.destroy_process_group()
+        out.put((rank, True, payload))
+    except BaseException:  # reported to the parent, which fails the phase
+        out.put((rank, False, traceback.format_exc()))
+
+
+def _mesh_checks(r, n_requests, what):
+    """One rank's run of phase 8g against the design: its exchanges, and
+    each kernel's launches equal the single-process engine's count for the
+    same passes (``_serve_batched``'s, from the same host counters) less
+    the passes the rank held no row of.  Returns the expected launches."""
+    c, ex, idle = r["counters"], r["exchanges"], r["idle_passes"]
+    n_tgt, n_drf = r["layers"]
+    steps = c["target_calls"]
+    want_ex = {"admit": r["admitting"], "draft": c["draft_calls"], "target": c["commit_calls"], "commit": 0,
+               "peek": 0, "failure": 0}
+    if ex != want_ex or r["gathers"] != sum(ex.values()) or c["commit_calls"] != steps:
+        raise RuntimeError(f"8g {what}, rank {r['rank']}: exchanges {ex} and all_gather_object calls "
+                           f"{r['gathers']} for {steps} steps ({c['commit_calls']} committed): expected {want_ex} "
+                           f"and no other collective")
+    if c["draft_calls"] != steps * (1 + 2 + 2):
+        raise RuntimeError(f"8g {what}: {c['draft_calls']} draft calls for {steps} steps of (2, 2, 2)")
+    want = {"tree_attention": (n_requests - idle["prefill"]) * (n_tgt + n_drf) + n_drf * 2 * steps,
+            "paged_tree_attention": n_drf * (steps + 2 * steps) + n_tgt * c["padded_calls"],
+            "ragged_paged_tree_attention": n_tgt * (c["ragged_calls"] - idle["ragged"]),
+            "commit_kv": c["commit_calls"], **{name: 0 for name in NO_ENGINE_PATH}}
+    if r["launches"] != want:
+        raise RuntimeError(f"8g {what}, rank {r['rank']}: launches {r['launches']}, expected {want} (the "
+                           f"single-process engine's passes x layers, less the passes idle here: {idle})")
+    return want
+
+
+def phase_data_mesh(torch, ctx, phase4, f32_tokens):
+    """8g: one pool over a data mesh, 2 gloo rank processes on one card (or
+    a card each): phase 4's models and traffic in bf16 (a), then 8e's
+    float32 cut (b), through BatchedSpeculativeEngine(...,
+    mesh=make_data_mesh(2)).  Both ranks return the same tokens and
+    reasons; exchanges and launches as the design gives them
+    (``_mesh_checks``); (b)'s tokens equal 8e's single-process engine's,
+    12 of 12.  Reported: (a)'s matches against phase 4, each rank's peak
+    and wall, the aggregate tok/s.  A rank that fails or hangs fails the
+    phase."""
+    import gc
+    import queue
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    t_phase = time.perf_counter()
+    cards = torch.cuda.device_count()
+    log(f"== phase 8g: one pool over a data mesh: BatchedSpeculativeEngine(..., mesh=make_data_mesh({MESH_RANKS})), "
+        f"{MESH_RANKS} gloo ranks on {min(cards, MESH_RANKS)} card(s), rows [4 r, 4 r + 4) of {N_SLOTS} a rank: (a) "
+        "phase 4's models (drawn on each rank from its seeds) and traffic, bf16, paged, ragged auto, pipelined; "
+        f"(b) 8e's float32 cut ({F32_TARGET_LAYERS} + {F32_DRAFT_LAYERS} layers)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    traffic = list(zip(ctx["prompts"], ctx["max_new"], ctx["seeds"]))
+    ctx_mp = mp.get_context("spawn")
+    got = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        out = ctx_mp.Queue()
+        procs = [ctx_mp.Process(target=_pool_mesh_rank, args=(r, MESH_RANKS, f"{tmp}/init", traffic, out))
+                 for r in range(MESH_RANKS)]
+        for p in procs:
+            p.start()
+        try:
+            for _ in range(MESH_RANKS):
+                rank, ok, payload = out.get(timeout=RANK_TIMEOUT_S)
+                if not ok:
+                    raise RuntimeError(f"8g: rank {rank} failed:\n{payload}")
+                got[rank] = payload
+        except queue.Empty:
+            raise RuntimeError(f"8g: {MESH_RANKS - len(got)} of {MESH_RANKS} ranks did not finish within "
+                               f"{RANK_TIMEOUT_S} s") from None
+        finally:
+            for p in procs:
+                p.join(timeout=30)
+                if p.is_alive():
+                    p.kill()
+                    p.join(timeout=30)
+        if any(p.exitcode != 0 for p in procs):
+            raise RuntimeError(f"8g: rank exit codes {[p.exitcode for p in procs]}")
+    ranks = [got[r] for r in range(MESH_RANKS)]
+    res = {"ranks": MESH_RANKS, "cards": min(cards, MESH_RANKS), "devices": [r["a"]["device"] for r in ranks],
+           "rows": [r["a"]["rows"] for r in ranks]}
+    for part, want_tokens in (("a", ctx["tokens"]["pipelined"]), ("b", f32_tokens)):
+        runs = [r[part] for r in ranks]
+        r0 = runs[0]
+        if any(r["outs"] != r0["outs"] for r in runs[1:]):
+            raise RuntimeError(f"8g ({part}): the ranks returned different tokens or reasons")
+        bad = [i for i, o in enumerate(r0["outs"]) if o["reason"] != "length" or len(o["tokens"]) != traffic[i][1]]
+        if bad:
+            raise RuntimeError(f"8g ({part}): requests {bad} did not finish with their max_new tokens")
+        expected = [_mesh_checks({**r, "rank": i}, len(traffic), part) for i, r in enumerate(runs)]
+        if sum(r["idle_passes"]["prefill"] for r in runs) != (MESH_RANKS - 1) * len(traffic):
+            raise RuntimeError(f"8g ({part}): each admission's prefill must run on exactly one rank")
+        tokens = [o["tokens"] for o in r0["outs"]]
+        n_tokens = sum(map(len, tokens))
+        wall = max(r["wall_s"] for r in runs)
+        res[part] = {"matches": sum(a == b for a, b in zip(tokens, want_tokens)), "steps": r0["steps"],
+                     "exchanges": [r["exchanges"] for r in runs], "idle_passes": [r["idle_passes"] for r in runs],
+                     "launches": [r["launches"] for r in runs], "expected_launches": expected,
+                     "counters": r0["counters"], "wall_s": [r["wall_s"] for r in runs],
+                     "gather_s": [r["gather_s"] for r in runs], "tokens": n_tokens,
+                     "tokens_per_s": n_tokens / wall,
+                     "max_memory_allocated": [r["max_memory_allocated"] for r in runs]}
+    a, b = res["a"], res["b"]
+    log(f"  (a) ranks on {res['devices']}, rows {res['rows']}: both ranks return the same tokens and reasons; "
+        f"{a['matches']} of {len(traffic)} requests equal phase 4's pipelined tokens (reported, not claimed: bf16 "
+        f"rounds by the batch's shape, and a rank's passes are 4 rows, not 8); {a['steps']} steps")
+    log(f"  (a) exchanges a rank {a['exchanges']} (the design's: one a draft pass, one a target pass, one a "
+        f"boundary that admits; nothing else); idle passes a rank {a['idle_passes']}")
+    log(f"  (a) launches a rank {a['launches']} (expected {a['expected_launches']})")
+    log(f"  (a) wall a rank {', '.join(f'{w:.4f}' for w in a['wall_s'])} s (in all_gather_object, the wait for "
+        f"the other rank included: {', '.join(f'{g:.4f}' for g in a['gather_s'])} s), {a['tokens']} tokens = "
+        f"{a['tokens_per_s']:.3f} tok/s aggregate (phase 4 pipelined: {phase4['pipelined']['wall_s']:.4f} s, "
+        f"{phase4['pipelined']['tokens_per_s']:.3f} tok/s; "
+        f"{'two ranks share one card: not a speed across cards' if cards < MESH_RANKS else 'a card a rank'}); "
+        "max_memory_allocated a rank " + ", ".join(f"{m / 2**30:.3f} GiB" for m in a["max_memory_allocated"]))
+    log(f"  (b) float32: {b['matches']} of {len(traffic)} requests equal 8e's single-process engine's tokens; "
+        f"exchanges a rank {b['exchanges']}; launches a rank {b['launches']} (expected as in (a)); wall a rank "
+        + ", ".join(f"{w:.4f}" for w in b["wall_s"]) + " s")
+    if b["matches"] != len(traffic):
+        bad = [i for i, (x, y) in enumerate(zip([o["tokens"] for o in ranks[0]["b"]["outs"]], f32_tokens)) if x != y]
+        raise RuntimeError(f"8g (b): requests {bad} differ from 8e's single-process float32 tokens")
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 8g took {res['seconds']:.1f} s")
+    return res
+
+
 def _profile_device_verify(torch, eng, prompt):
     """One step of ``eng`` (verify_on_device) under torch.profiler: the
     verifier's window is a record_function range around each
@@ -2869,7 +3163,7 @@ def phase_float32_match(torch):
     results = {"batched_matches_single_of_3": sum(d is None for d in singles),
                "first_diverging_token": singles,
                "sharded_matches_unsharded_of_12": sum(a == b for a, b in zip(toks_s, toks_u)),
-               "unsharded": res_u, "sharded": res_s}
+               "unsharded": res_u, "sharded": res_s, "unsharded_tokens": toks_u}
     log(f"  float32: batched == single-stream for {results['batched_matches_single_of_3']} of 3 streams (first "
         f"diverging tokens {singles}); sharded == unsharded for {results['sharded_matches_unsharded_of_12']} of "
         f"{N_REQUESTS}; block_efficiency {res_u['block_efficiency']:.4f} unsharded, "
@@ -3431,9 +3725,11 @@ DRY_JOBS = 8
 DRY_DECODE = {"seq": 4096, "batch": 8, "kind": "decode"}
 DRY_TRAIN = {"seq": 1024, "batch": 1, "kind": "train"}
 DRY_TOLERANCE_RULE = "|memory_allocated increase - resident_bytes| <= 0.1 % of resident_bytes + 1 MiB"
-# the table's two longest entries at full depth (~116 and ~72 s of host time on the H100's machine: the
-# RG-LRU scan runs in Python a layer), run at a cut depth so that the table ends with its other entries
-DRY_CUT_LAYERS = {("recurrentgemma-2b", "prefill_32k"): 12, ("recurrentgemma-2b", "train_4k"): 12}
+# the table's longest entries at full depth (~116 and ~72 s of host time on the H100's machine: the
+# RG-LRU scan runs in Python a layer; then mamba2-2.7b's 64 layers, 55.5 and 48.2 s in PR 24's proof
+# run), run at a cut depth so that the table ends with its other entries
+DRY_CUT_LAYERS = {("recurrentgemma-2b", "prefill_32k"): 12, ("recurrentgemma-2b", "train_4k"): 12,
+                  ("mamba2-2.7b", "prefill_32k"): 16, ("mamba2-2.7b", "train_4k"): 16}
 
 
 def _real_bytes(torch, build):
@@ -3798,7 +4094,7 @@ def main():
 
     def granite_phase8(tcfg, tp, dcfg, dp, ctx):
         phase8["a"] = phase_sharded_tree(torch, tcfg, tp, dcfg, dp, ctx)
-        phase8["ctx"] = {k: ctx[k] for k in ("prompts", "max_new", "seeds")}
+        phase8["ctx"] = {k: ctx[k] for k in ("prompts", "max_new", "seeds", "tokens")}
         phase8["c"], phase8["c_launches"] = phase_device_verify(torch, tcfg, tp, dcfg, dp, main_path)
 
     def hybrid_phase8(tcfg, tp, dcfg, dp, ctx):
@@ -3818,8 +4114,8 @@ def main():
     recurrent, rec_single_launches, rec_batched_runs = phase_recurrent(torch, then=hybrid_phase8)
     phase8["d"] = phase_solver_laws(torch)
     phase8["e"], f32_batched_runs, f32_single_launches = phase_float32_match(torch)
-    phase8.pop("ctx")
-    phase8["seconds"] = sum(phase8[k]["seconds"] for k in "abcdef")
+    phase8["g"] = phase_data_mesh(torch, phase8.pop("ctx"), batched, phase8["e"]["unsharded_tokens"])
+    phase8["seconds"] = sum(phase8[k]["seconds"] for k in "abcdefg")
     log(f"  phase 8 took {phase8['seconds']:.1f} s")
     t9 = time.perf_counter()
     families, family_launches = phase_families(torch)
@@ -3835,14 +4131,14 @@ def main():
     meshes = phase_meshes(torch, training["a"], dry_run.pop("mesh_runs"))
 
     # each kernel's launches over every main-path run (phases 3, 5, 6, 7, 8c, 8e, 9a/9b and 10d single
-    # stream, 9c's card passes, both runs of phases 4, 5, 6e, 7, 8a and 8e, 8b's, 8f's summed over its
-    # ranks, phase 11's real
+    # stream, 9c's card passes, both runs of phases 4, 5, 6e, 8a and 8e, 7's, 8b's, 8f's summed over its
+    # ranks, 8g's two runs on each rank, phase 11's real
     # decode step; phase 10's and 12's training and phase 11's train step launch none); its times at the
     # hottest shape of its path, in bf16
     runs = [batched["pipelined"]["launches"], batched["sync"]["launches"],
             moe["pipelined"]["launches"], moe["sync"]["launches"], *nde_batched_runs, *rec_batched_runs,
             phase8["a"]["pipelined"]["launches"], phase8["a"]["sync"]["launches"], phase8["b"]["launches"],
-            phase8["f"]["launches"], *f32_batched_runs]
+            phase8["f"]["launches"], *f32_batched_runs, *phase8["g"]["a"]["launches"], *phase8["g"]["b"]["launches"]]
     total = {name: sum(r[name] for r in runs) for name in runs[0]}
     total["tree_attention"] += (launches + moe_launches + nde_single_launches + rec_single_launches
                                 + phase8["c_launches"] + f32_single_launches + family_launches

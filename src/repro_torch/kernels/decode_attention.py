@@ -1,4 +1,6 @@
-"""Wrappers of the Hopper split-K flash-decode kernel (csrc/decode_attention.cu).
+"""Wrappers of the Hopper split-K flash-decode kernel (csrc/decode_attention_body.cuh,
+its bfloat16 instances in csrc/decode_attention.cu, its float32 ones in
+csrc/decode_attention_f32.cu).
 
 Counterparts of the Pallas TPU kernels ``decode_attention`` and
 ``paged_decode_attention`` in src/repro/kernels/decode_attention.py, in the
@@ -23,7 +25,8 @@ import torch
 from repro_torch.kernels import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)  # the instances compiled in csrc/decode_attention.cu
+_HEAD_DIMS = (32, 48, 64, 128, 256)  # the instances compiled in each dtype's source
+_SOURCES = {torch.float32: "decode_attention_f32", torch.bfloat16: "decode_attention"}  # csrc/<name>.cu
 HEADS_PER_CTA = 16  # query heads of one KV head a CTA serves: the bf16 kernel's m16 tile (kRows)
 _ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
 # the combine's tickets, one int32 per (row, head group), zero between calls: per
@@ -89,12 +92,13 @@ def _launch(q, k, v, tbl, lengths, S, block, nb, window) -> torch.Tensor:
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         tickets = _tickets_for(q.device, stream, B * Hkv * -(-(H // Hkv) // HEADS_PER_CTA))
-        fn = build.function("decode_attention", "decode_attention_launch", _ARGTYPES)
+        source = _SOURCES[q.dtype]
+        fn = build.function(source, f"{source}_launch", _ARGTYPES)
         code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), None if tbl is None else tbl.data_ptr(),
                   lengths.data_ptr(), part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(),
                   tickets.data_ptr(), out.data_ptr(), B, H, Hkv, S, block, nb, D, int(window), slots,
                   _DTYPES[q.dtype], stream)
-    build.check_launch("decode_attention", code)
+    build.check_launch(source, code)
     return out
 
 

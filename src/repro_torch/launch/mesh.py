@@ -15,6 +15,7 @@ from __future__ import annotations
 import math
 import os
 from collections.abc import Mapping
+from dataclasses import dataclass
 
 import torch
 import torch.distributed as dist
@@ -111,3 +112,43 @@ def rank_shard(device_type: str, group=None) -> tuple[int, torch.device]:
     rank = dist.get_rank(group)
     local = int(os.environ.get("LOCAL_RANK", rank))
     return rank, shard_meshes(local + 1, device_type)[local]
+
+
+@dataclass(frozen=True)
+class DataRows:
+    """This rank's place in a pool split over a data mesh: its index
+    ``rank`` of ``n`` on the ``"data"`` axis, its stream rows [lo, hi) and
+    the axis's process group, whose backend (the mesh's device type) carries
+    the exchanges."""
+
+    rank: int
+    n: int
+    lo: int
+    hi: int
+    group: object
+
+
+def data_rows(mesh: DeviceMesh, n_slots: int) -> DataRows:
+    """The rows of an ``n_slots``-row pool that this rank holds on ``mesh``,
+    a ``DeviceMesh`` with a ``"data"`` axis: rank r of n takes rows
+    [r b, (r + 1) b), b = n_slots / n, as JAX's ``NamedSharding`` of the
+    stream axis over ``make_data_mesh(n)`` splits it.  ``n_slots`` must
+    divide the axis (``launch.sharding.pad_slots``).  Any other axis of
+    size > 1 raises: JAX's ``pool_specs`` replicates the pool over it, but
+    no JAX caller builds such a mesh, and serving from one is ROADMAP queue
+    1 item 18."""
+    axes = mesh_axes(mesh)
+    if "data" not in axes:
+        raise ValueError(f"a pool splits over a mesh with a 'data' axis, got axes {axes}")
+    other = {name: size for name, size in axes.items() if name != "data" and size > 1}
+    if other:
+        raise NotImplementedError(f"one pool over a data mesh with another axis of size > 1 ({other}) is not "
+                                  f"served (ROADMAP queue 1 item 18): give the engine a 1-axis data mesh "
+                                  f"(make_data_mesh)")
+    n = axes["data"]
+    if n_slots % n:
+        raise ValueError(f"KV-pool stream axis of size {n_slots} does not divide the mesh data axis ({n}): "
+                         f"pad n_slots with launch.sharding.pad_slots() instead of replicating a pool shard")
+    b = n_slots // n
+    r = mesh.get_local_rank("data")
+    return DataRows(r, n, r * b, (r + 1) * b, mesh.get_group("data"))

@@ -286,18 +286,42 @@ def pool_specs(mesh_axes: dict, cache: dict) -> dict:
     return out
 
 
+def pool_local(mesh: DeviceMesh, cache: dict) -> dict:
+    """This rank's part of a cache pool split over ``mesh`` as
+    ``pool_shardings`` places it: the rows of its ``"data"`` index of every
+    leaf with a stream axis (copies), every other leaf (a paged arena) as
+    it is, on the cache's own device.  The mesh's device type says where
+    its collectives run, not where the rows live: ranks that share one
+    card exchange over a ``"cpu"`` (gloo) mesh."""
+    axes = mesh_axes(mesh)
+    specs = pool_specs(axes, cache)
+    rank = mesh.get_local_rank("data")
+
+    def part(tree, spec):
+        if isinstance(tree, dict):
+            return {k: part(v, spec[k]) for k, v in tree.items()}
+        if spec is None:
+            return tree
+        b = tree.shape[spec] // axes["data"]
+        return tree.narrow(spec, rank * b, b).clone()
+
+    return part(cache, specs)
+
+
 def pool_shardings(mesh, cache: dict) -> dict:
     """Place a cache pool.
 
     ``mesh`` a ``DeviceMesh`` (``launch.mesh.make_data_mesh``): every leaf
     becomes a DTensor whose stream axis is ``Shard`` on the ``"data"`` axis
-    (``pool_specs``), replicated on the others; so ONE pool is split across
-    the mesh's ranks, JAX's SPMD form.  ``mesh`` a ``torch.device`` (or a
-    sequence of one): every leaf moved there, one shard's pool of the
-    sharded engine.  A list of several devices in one process raises: no
-    engine serves from one pool split across cards (ROADMAP queue 1 item
-    8c); shards on several cards are served one a rank
-    (``ShardedBatchedSpeculativeEngine(group=...)``)."""
+    (``pool_specs``), replicated on the others, over this rank's part
+    (``pool_local``): ONE pool split across the mesh's ranks, JAX's SPMD
+    form.  ``cache`` must be the same on every rank, as the host arrays JAX
+    commits are: the placement moves nothing between ranks.  ``mesh`` a
+    ``torch.device`` (or a sequence of one): every leaf moved there, one
+    shard's pool of the sharded engine.  A list of several devices in one
+    process raises: one pool over several cards is served over a
+    ``DeviceMesh`` of ranks, one a card (ROADMAP queue 1 item 8c's form,
+    ``BatchedSpeculativeEngine(..., mesh=make_data_mesh(n))``)."""
     if isinstance(mesh, DeviceMesh):
         axes = mesh_axes(mesh)
         specs = pool_specs(axes, cache)
@@ -306,16 +330,16 @@ def pool_shardings(mesh, cache: dict) -> dict:
             if isinstance(tree, dict):
                 return {k: place(v, spec[k]) for k, v in tree.items()}
             pl = tuple(Shard(spec) if name == "data" and spec is not None else Replicate() for name in axes)
-            return distribute_tensor(tree, mesh, pl)
+            return DTensor.from_local(tree, mesh, pl, run_check=False)
 
-        return place(cache, specs)
+        return place(pool_local(mesh, cache), specs)
     devices = [mesh] if isinstance(mesh, (str, torch.device)) else list(mesh)
     if len(devices) != 1:
         raise NotImplementedError(
-            f"one pool over {len(devices)} devices of one process is not ported: place it over a DeviceMesh "
-            f"of ranks (launch.mesh.make_data_mesh); serving from such a pool is ROADMAP queue 1 item 8c. "
-            f"Split the pool into slot shards with ShardedBatchedSpeculativeEngine instead, one a rank "
-            f"(group=..., launch/serve.py --distributed) to serve them from several cards")
+            f"one pool over {len(devices)} devices of one process is not served: split it over a DeviceMesh "
+            f"of ranks, one a card (BatchedSpeculativeEngine(..., mesh=launch.mesh.make_data_mesh(n)), ROADMAP "
+            f"queue 1 item 8c), or into slot shards with ShardedBatchedSpeculativeEngine, one a rank "
+            f"(group=..., launch/serve.py --distributed)")
     dev = torch.device(devices[0])
 
     def move(tree: dict) -> dict:

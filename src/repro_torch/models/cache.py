@@ -468,6 +468,14 @@ class CachePool:
     lowest index first.  A pure recurrent (ssm) cache, which has no
     attention component, is always this ring pool.
 
+    ``rows`` (lo, hi): the pool's rows [lo, hi) of ``n_slots`` live in
+    ``cache`` (one rank's part of a pool split over a data mesh; by default
+    all of them).  Slot ids, the free-row list and, paged, the block tables
+    and the block free list stay global: host state, the same on every rank.
+    Every method takes global slot ids and touches the device rows of its
+    own range only; ``admit`` of a row another rank holds takes no row
+    cache (None) and only books the row.
+
     Frames (the pipelined engine's rewind of a recurrent draft pool):
     between ``begin_frame()`` and ``drop_frame()`` the pool holds a back
     frame, the cache as of the frame start, and ``rollback_frame()``
@@ -476,11 +484,21 @@ class CachePool:
     ``clone_cache`` copy (k/v copied, every other leaf shared: it is only
     ever replaced)."""
 
-    def __init__(self, cache: dict, n_slots: int):
+    def __init__(self, cache: dict, n_slots: int, rows: tuple[int, int] | None = None):
         self.cache = cache
         self.n_slots = n_slots
+        self.lo, self.hi = rows if rows is not None else (0, n_slots)
         self._free = list(range(n_slots))
         self._back: dict | None = None
+
+    def holds(self, slot: int) -> bool:
+        """Whether row ``slot`` lives in this pool's ``cache``."""
+        return self.lo <= slot < self.hi
+
+    def _local_starts(self, starts: dict) -> dict:
+        """{global row: value} restricted to the rows held here, keyed by
+        their index in ``cache``."""
+        return {s - self.lo: v for s, v in starts.items() if self.holds(s)}
 
     @property
     def frame_held(self) -> bool:
@@ -508,6 +526,7 @@ class CachePool:
         set pos = -1 on every lane holding a position >= start and rewind
         the row's len to start.  The orphaned KV lanes keep their content,
         barred from every mask by pos = -1."""
+        starts = self._local_starts(starts)
         if not starts:
             return
         attn = dict(self.cache["attn"])
@@ -525,6 +544,10 @@ class CachePool:
     def free_slots(self) -> int:
         return len(self._free)
 
+    def next_slot(self) -> int | None:
+        """The row ``acquire`` would hand out next (None when full)."""
+        return self._free[0] if self._free else None
+
     def acquire(self) -> int:
         if not self._free:
             raise RuntimeError("cache pool exhausted")
@@ -536,10 +559,20 @@ class CachePool:
         self._free.append(slot)
         self._free.sort()
 
-    def admit(self, row_cache: dict, ctx_len: int = 0) -> int:
-        """Scatter a freshly prefilled 1-row per-stream cache into a free row."""
+    def _write_row(self, slot: int, row_cache: dict | None) -> None:
+        """Scatter a 1-row cache into row ``slot``: given exactly when the
+        row is held here."""
+        if (row_cache is not None) != self.holds(slot):
+            raise ValueError(f"row {slot} {'is' if self.holds(slot) else 'is not'} held in rows "
+                             f"[{self.lo}, {self.hi}): its row cache must be {'given' if self.holds(slot) else 'None'}")
+        if row_cache is not None:
+            self.cache = scatter_streams(self.cache, row_cache, [slot - self.lo])
+
+    def admit(self, row_cache: dict | None, ctx_len: int = 0) -> int:
+        """Scatter a freshly prefilled 1-row per-stream cache into a free row
+        (None for a row held elsewhere)."""
         slot = self.acquire()
-        self.cache = scatter_streams(self.cache, row_cache, [slot])
+        self._write_row(slot, row_cache)
         return slot
 
 
@@ -560,8 +593,8 @@ class PagedCachePool(CachePool):
       * ``release(slot)`` returns every block to the free list.
     """
 
-    def __init__(self, cache: dict, n_slots: int):
-        super().__init__(cache, n_slots)
+    def __init__(self, cache: dict, n_slots: int, rows: tuple[int, int] | None = None):
+        super().__init__(cache, n_slots, rows)
         if not is_paged(cache):
             raise ValueError("PagedCachePool needs a paged attn cache")
         attn = self.cache["attn"]
@@ -603,7 +636,7 @@ class PagedCachePool(CachePool):
 
     def _sync_tbl(self) -> None:
         attn = dict(self.cache["attn"])
-        attn["block_tbl"] = torch.tensor(self._tbl, device=attn["block_tbl"].device)  # a copy
+        attn["block_tbl"] = torch.tensor(self._tbl[self.lo:self.hi], device=attn["block_tbl"].device)  # a copy
         self.cache = {**self.cache, "attn": attn}
 
     def ensure(self, slot: int, upto: int, sync: bool = True) -> bool:
@@ -630,6 +663,7 @@ class PagedCachePool(CachePool):
 
     def _reset_pos_tails(self, starts: dict) -> None:
         """pos[slot, start:] = -1 for every {slot: start}, in one round."""
+        starts = self._local_starts(starts)
         if not starts:
             return
         attn = dict(self.cache["attn"])
@@ -682,19 +716,21 @@ class PagedCachePool(CachePool):
             self._sync_tbl()
         super().release(slot)
 
-    def admit(self, row_cache: dict, ctx_len: int = 0) -> int:
+    def admit(self, row_cache: dict | None, ctx_len: int = 0) -> int:
         """Acquire a row, map blocks for the prefilled context, scatter the
-        dense row through the table.  An exhausted free list here is a
-        scheduling bug: callers gate on ``free_blocks`` first."""
+        dense row through the table (None: a row held elsewhere).  An
+        exhausted free list here is a scheduling bug: callers gate on
+        ``free_blocks`` first."""
         slot = self.acquire()
         if not self.ensure(slot, ctx_len):
             super().release(slot)
             raise RuntimeError(f"paged pool out of blocks admitting a {ctx_len}-token context "
                                f"({self.free_blocks} free)")
-        self.cache = scatter_streams(self.cache, row_cache, [slot])
+        self._write_row(slot, row_cache)
         return slot
 
 
-def make_cache_pool(cache: dict, n_slots: int) -> CachePool:
-    """Paged pools for paged caches, ring pools otherwise."""
-    return (PagedCachePool if is_paged(cache) else CachePool)(cache, n_slots)
+def make_cache_pool(cache: dict, n_slots: int, rows: tuple[int, int] | None = None) -> CachePool:
+    """Paged pools for paged caches, ring pools otherwise; ``rows`` as in
+    ``CachePool``."""
+    return (PagedCachePool if is_paged(cache) else CachePool)(cache, n_slots, rows)

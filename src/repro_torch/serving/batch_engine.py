@@ -49,6 +49,16 @@ scatter keeps it; a
 pipelined step's recurrent draft pool is rewound from a copied back frame
 (``CachePool.begin_frame``).
 
+One pool split over the ranks of a data mesh (``mesh`` a ``DeviceMesh``,
+JAX's engine on ``make_data_mesh(n)``): every rank runs the engine's host
+program (admission, eviction, buckets, rng, verification) identically over
+all ``n_slots`` rows, but holds and passes only its own rows [lo, hi) of the
+pool (a paged arena whole, written only through its own rows' tables).
+Every per-row readback is an exchange of the ranks' rows (JAX's
+``device_get`` of a data-sharded array); a pass over one stream (an
+admission's prefill, a selector's peek) runs on the stream's rank and is
+broadcast the same way.
+
 ``ShardedBatchedSpeculativeEngine`` splits the pool into ``data_shards``
 slot shards, each a ``BatchedSpeculativeEngine`` with its own rows and
 arena, routed by a bin-packing scheduler.  In one process every shard
@@ -60,6 +70,7 @@ is refused, as in JAX.
 """
 from __future__ import annotations
 
+import functools
 import time
 from collections import defaultdict
 from dataclasses import dataclass
@@ -72,8 +83,8 @@ from torch.distributed.device_mesh import DeviceMesh
 from repro_torch.core.traversal import delayed_structure
 from repro_torch.core.trees import DraftTree
 from repro_torch.core.verify import get_verifier
-from repro_torch.launch.mesh import rank_shard
-from repro_torch.launch.sharding import pad_slots, pool_shardings
+from repro_torch.launch.mesh import data_rows, rank_shard
+from repro_torch.launch.sharding import pad_slots, pool_local, pool_shardings
 from repro_torch.models.cache import (
     PagedCachePool,
     concat_streams,
@@ -134,6 +145,34 @@ class HostCopy:
         return self._host.numpy()
 
 
+def _mesh_guarded(method):
+    """A public entry point of an engine in the mesh form: an error that
+    escapes it on one rank outside any exchange is announced with one
+    "failure" exchange, which meets the other ranks' next exchange and makes
+    them raise too, so no rank waits on a failed one."""
+
+    @functools.wraps(method)
+    def guarded(self, *args, **kwargs):
+        if self._rows is None or self._guarded:
+            return method(self, *args, **kwargs)
+        if self._failed is not None:
+            raise RuntimeError(f"the engine failed earlier: {self._failed}")
+        self._guarded = True
+        try:
+            return method(self, *args, **kwargs)
+        except BaseException as e:
+            if self._failed is None:
+                self._failed = f"{type(e).__name__}: {e}"
+                got = [None] * self._rows.n
+                dist.all_gather_object(got, (self._failed, None), group=self._rows.group)
+                self.exchanges["failure"] += 1
+            raise
+        finally:
+            self._guarded = False
+
+    return guarded
+
+
 @dataclass
 class BatchRequest:
     rid: int
@@ -153,8 +192,11 @@ class PendingStep:
     draft pool's pre-ingest length), with the ``rng_state`` snapshots
     (pipelined mode), are the rewind coordinates of ``abort_step``.
     ``roffs`` is ({slot: (offset, n_nodes)}, Npad) for a ragged pass, None
-    for the padded (B, Tpad) layout.  ``boundary_evicted`` is True when the
-    step's scheduling boundary evicted a stream (submit's drain rule)."""
+    for the padded (B, Tpad) layout; in the mesh form ``local_offs`` is this
+    rank's own packing of its streams' segments, and ``segs`` the exchanged
+    tree outputs of every stream ({slot: (p rows, hidden rows)}).
+    ``boundary_evicted`` is True when the step's scheduling boundary evicted
+    a stream (submit's drain rule)."""
 
     active: list[int]
     acts: dict[int, tuple]
@@ -170,6 +212,8 @@ class PendingStep:
     D0: dict[int, int] | None = None
     roffs: object = None
     boundary_evicted: bool = False
+    local_offs: dict | None = None
+    segs: dict | None = None
 
 
 @dataclass
@@ -198,8 +242,22 @@ class BatchedSpeculativeEngine:
     ``ShardedBatchedSpeculativeEngine``, which passes ``shard_id`` too;
     launch/sharding.pool_shardings places the pool).  It must be the
     weights' device: a shard serves from another card as a rank of its
-    own (``ShardedBatchedSpeculativeEngine(group=...)``), and one pool over
-    a ``DeviceMesh`` of several ranks is ROADMAP queue 1 item 8c.
+    own (``ShardedBatchedSpeculativeEngine(group=...)``).  Or a
+    ``DeviceMesh`` with a ``"data"`` axis (``launch.mesh.make_data_mesh``):
+    one pool split over its ranks (module docstring; ``launch.mesh.
+    data_rows``), every rank building the engine with the same arguments
+    and calling it the same way; the rank's rows live on its weights'
+    device, ``launch.mesh.rank_shard``'s, and the mesh's device type says
+    where the exchanges run, not where the rows live (``"cpu"``: gloo,
+    which also serves ranks sharing one card).  ``exchanges`` counts them by kind: "admit" (the
+    prefilled rows' hidden states, once a boundary that admits), "draft"
+    (a draft pass's, or a recurrent draft's grouped ingest's, readback),
+    "target" (a tree pass's distributions and hidden states together, or
+    the replay's trunk and branch groups), "commit" (the replay commit's
+    hidden states), "peek" and "failure".  ``idle_passes`` counts by kind
+    the passes this rank skipped for holding no row of their group
+    ("prefill", "ragged", "replay"); every other pass runs on every rank,
+    as JAX's SPMD program does.
     ``profile_commits``: when set, ``commit_ms`` waits
     for the commit to finish on the device instead of timing the host's
     dispatch only (blocking every step would serialize the host against the
@@ -247,11 +305,19 @@ class BatchedSpeculativeEngine:
             page = (pool_blocks, bs)
         tcache = init_cache(target_cfg, n_slots, smax, self.device, True, page)
         dcache = init_cache(draft_cfg, n_slots, smax, self.device, True, page)
-        if isinstance(mesh, DeviceMesh) and mesh.size() > 1:
-            raise NotImplementedError("serving from one pool split over a mesh of several ranks is not ported "
-                                      "(ROADMAP queue 1 item 8c); serve one shard a rank instead "
-                                      "(ShardedBatchedSpeculativeEngine(group=...), launch/serve.py --distributed)")
-        if mesh is not None:
+        self._rows, rows = None, None
+        self._failed, self._guarded = None, False
+        if isinstance(mesh, DeviceMesh):
+            self._rows = data_rows(mesh, n_slots)
+            _, device = rank_shard(self.device.type, self._rows.group)
+            if device != self.device:
+                raise ValueError(f"data rank {self._rows.rank} serves its rows from {device}, but its weights "
+                                 f"are on {self.device}: draw or move them there")
+            tcache, dcache = pool_local(mesh, tcache), pool_local(mesh, dcache)
+            rows = (self._rows.lo, self._rows.hi)
+            self.exchanges = dict.fromkeys(("admit", "draft", "target", "commit", "peek", "failure"), 0)
+            self.idle_passes = dict.fromkeys(("prefill", "ragged", "replay"), 0)
+        elif mesh is not None:
             tcache, dcache = pool_shardings(mesh, tcache), pool_shardings(mesh, dcache)
             placed = (tcache["attn"] if "attn" in tcache else tcache)["len"].device
             if placed != self.device:
@@ -259,8 +325,9 @@ class BatchedSpeculativeEngine:
                                  "process every shard stays on its weights' device; serve a shard from another "
                                  "card as a rank of its own (ShardedBatchedSpeculativeEngine(group=...), "
                                  "launch/serve.py --distributed)")
-        self.tpool = make_cache_pool(tcache, n_slots)
-        self.dpool = make_cache_pool(dcache, n_slots)
+        self._lo, self._hi = rows if rows is not None else (0, n_slots)
+        self.tpool = make_cache_pool(tcache, n_slots, rows)
+        self.dpool = make_cache_pool(dcache, n_slots, rows)
         # pure-recurrent caches have no attention component to page
         self.paged = bool(self._paged_pools())
         self.ragged = ragged
@@ -310,8 +377,56 @@ class BatchedSpeculativeEngine:
     def _stage(self, name, shape, dtype, fill=0):
         return self._staging.get(name, shape, dtype, fill)
 
-    def _up(self, buf: np.ndarray) -> torch.Tensor:
-        return self._staging.upload(buf)
+    def _up(self, buf: np.ndarray, per: int = 1) -> torch.Tensor:
+        """Upload a staged buffer built for all ``n_slots`` rows (``per``
+        leading entries a row): this rank's rows only."""
+        return self._staging.upload(buf[self._lo * per:self._hi * per])
+
+    def _mine(self, slot: int) -> bool:
+        """Whether pool row ``slot`` lives on this rank (always, outside the
+        mesh form)."""
+        return self.tpool.holds(slot)
+
+    # ------------------------------------------------------ the mesh form ---
+
+    def _exchange(self, kind: str, part) -> list:
+        """Run ``part()`` (this rank's share of a readback) and return every
+        rank's result in rank order: without a mesh just ``[part()]``; in the
+        mesh form ONE ``all_gather_object`` of (error, result) over the data
+        axis.  An error ``part`` raises is carried in its slot; if any rank's
+        slot holds one, every rank raises after the exchange.  (An error
+        outside any exchange is announced by ``_mesh_guarded``.)"""
+        if self._rows is None:
+            return [part()]
+        err, out = None, None
+        try:
+            out = part()
+        except Exception as e:  # re-raised below, after every rank has heard of it
+            err = e
+        got = [None] * self._rows.n
+        dist.all_gather_object(got, (None if err is None else f"{type(err).__name__}: {err}", out),
+                               group=self._rows.group)
+        self.exchanges[kind] += 1
+        failed = [(r, g[0]) for r, g in enumerate(got) if g[0] is not None]
+        if failed:
+            self._failed = failed[0][1]
+            if err is not None:
+                raise err
+            raise RuntimeError(f"{kind}: rank {failed[0][0]} failed: {failed[0][1]}"
+                               + (f" (and {len(failed) - 1} more ranks)" if len(failed) > 1 else ""))
+        return [g[1] for g in got]
+
+    def _gathered(self, kind: str, part) -> dict:
+        """``_exchange`` of a ``part`` that returns {slot: value} over this
+        rank's rows: the union over the ranks."""
+        out: dict = {}
+        for d in self._exchange(kind, part):
+            out.update(d)
+        return out
+
+    def _idle(self, kind: str) -> None:
+        if self._rows is not None:
+            self.idle_passes[kind] += 1
 
     def _warp(self, logits):
         return warp_logits(logits, self.sampling.temperature, self.sampling.top_p)
@@ -331,6 +446,7 @@ class BatchedSpeculativeEngine:
 
     # ------------------------------------------------------------ requests ---
 
+    @_mesh_guarded
     def submit(self, prompt: list[int], max_new: int = 64, seed: int | None = None) -> int:
         """Queue a request; it is admitted when a pool row frees up.  ``seed``
         drives this stream's randomness: a single-stream ``SpeculativeEngine``
@@ -412,6 +528,7 @@ class BatchedSpeculativeEngine:
         return min(-(-(prompt_len + self._default_tpad()) // self.block_size), self.max_blocks)
 
     def _admit(self):
+        admitted, hidden, hidden_q = [], {}, {}
         while self.queue and self.tpool.free_slots:
             req = self.queue[0]
             if self.paged:
@@ -432,8 +549,13 @@ class BatchedSpeculativeEngine:
                     break  # FIFO: the head blocks the queue until blocks free up
             self.queue.pop(0)
             ctx = req.prompt[:-1]
-            trow, h_p = self._prefill_row(self.tc, self.tp, ctx)
-            drow, h_q = self._prefill_row(self.dc, self.dp, ctx)
+            trow = drow = None
+            nxt = self.tpool.next_slot()
+            if self._mine(nxt):  # in the mesh form, the row's rank prefills it
+                trow, hidden[nxt] = self._prefill_row(self.tc, self.tp, ctx)
+                drow, hidden_q[nxt] = self._prefill_row(self.dc, self.dp, ctx)
+            else:
+                self._idle("prefill")
             slot = self.tpool.admit(trow, ctx_len=len(ctx))
             slot_d = self.dpool.admit(drow, ctx_len=len(ctx))
             if slot != slot_d:
@@ -449,12 +571,21 @@ class BatchedSpeculativeEngine:
                 "committed": list(req.prompt),
                 "pending": int(req.prompt[-1]),
                 "draft_delta": [int(req.prompt[-1])],
-                "h_prev_p": h_p if h_p is not None else np.zeros(self.tc.d_model, np.float32),
-                "h_prev_q": h_q if h_q is not None else np.zeros(self.dc.d_model, np.float32),
+                "h_prev_p": None,
+                "h_prev_q": None,
                 "p_prev": None,
                 "q_prev": None,
                 "done": False,
             }
+            admitted.append(slot)
+        if not admitted:
+            return
+        # the prefilled rows' last hidden states (None for an empty context)
+        got = self._gathered("admit", lambda: {s: (hidden[s], hidden_q[s]) for s in admitted if self._mine(s)})
+        for s in admitted:
+            h_p, h_q = got[s]
+            self.streams[s]["h_prev_p"] = h_p if h_p is not None else np.zeros(self.tc.d_model, np.float32)
+            self.streams[s]["h_prev_q"] = h_q if h_q is not None else np.zeros(self.dc.d_model, np.float32)
 
     def _finish(self, slot: int, reason: str = "length"):
         st = self.streams.pop(slot)
@@ -483,38 +614,52 @@ class BatchedSpeculativeEngine:
             d = self.streams[s]["draft_delta"]
             toks[s, : len(d)] = d
             lens[s] = len(d)
-        logits, cache, hidden = self._steps["ingest"](self.dp, self.dpool.cache, self._up(toks), self._up(lens))
-        self.dpool.cache = cache
-        w = _host(self._warp(logits))
-        hid = _host(hidden)
-        q0 = {s: w[s, lens[s] - 1] for s in active}
-        hq = {s: hid[s, lens[s] - 1] for s in active}
+
+        def part():
+            logits, self.dpool.cache, hidden = self._steps["ingest"](
+                self.dp, self.dpool.cache, self._up(toks), self._up(lens))
+            w, hid = _host(self._warp(logits)), _host(hidden)
+            lo = self._lo
+            return {s: (w[s - lo, lens[s] - 1], hid[s - lo, lens[s] - 1]) for s in active if self._mine(s)}
+
+        got = self._gathered("draft", part)
+        q0 = {s: got[s][0] for s in active}
+        hq = {s: got[s][1] for s in active}
         self.counters["draft_calls"] += 1
         self.counters["draft_tokens"] += int(lens.sum())
         return q0, hq
 
     def _ingest_grouped(self, active):
-        q0, hq = {}, {}
         groups = defaultdict(list)
         for s in active:
             groups[len(self.streams[s]["draft_delta"])].append(s)
-        trims, all_rows = [], []
-        for L, rows in sorted(groups.items()):
-            toks = np.asarray([self.streams[s]["draft_delta"] for s in rows], np.int64)
-            sub = gather_streams(self.dpool.cache, rows)
-            logits, sub, ex = forward(self.dp, self.dc, self._tokens(toks), mode="decode", cache=sub)
-            trims.append(sub)
-            all_rows.extend(rows)
-            w = _host(self._warp(logits))
-            hid = _host(ex["hidden"])
-            for i, s in enumerate(rows):
-                q0[s] = w[i, L - 1]
-                hq[s] = hid[i, L - 1]
+        for L, rows in groups.items():
             self.counters["draft_calls"] += 1
             self.counters["draft_tokens"] += L * len(rows)
-        # a held back frame is a copy: the write-back may go into the pool
-        self.dpool.cache = self._scatter_rows(self.dpool.cache, trims, all_rows)
-        return q0, hq
+
+        def part():
+            out, trims, all_rows = {}, [], []
+            for L, rows in sorted(groups.items()):
+                rows = [s for s in rows if self._mine(s)]
+                if not rows:
+                    self._idle("replay")
+                    continue
+                toks = np.asarray([self.streams[s]["draft_delta"] for s in rows], np.int64)
+                sub = gather_streams(self.dpool.cache, [s - self._lo for s in rows])
+                logits, sub, ex = forward(self.dp, self.dc, self._tokens(toks), mode="decode", cache=sub)
+                trims.append(sub)
+                all_rows.extend(s - self._lo for s in rows)
+                w = _host(self._warp(logits))
+                hid = _host(ex["hidden"])
+                for i, s in enumerate(rows):
+                    out[s] = (w[i, L - 1], hid[i, L - 1])
+            if trims:
+                # a held back frame is a copy: the write-back may go into the pool
+                self.dpool.cache = self._scatter_rows(self.dpool.cache, trims, all_rows)
+            return out
+
+        got = self._gathered("draft", part)
+        return {s: got[s][0] for s in active}, {s: got[s][1] for s in active}
 
     @staticmethod
     def _bucket_actions(acts) -> tuple[int, int, int, int]:
@@ -604,12 +749,18 @@ class BatchedSpeculativeEngine:
                     keep[s] = True
                     trunk_tok[s].append(t)
                     n_live += 1
-            logits, dwork = self._steps["trunk"](self.dp, dwork, self._up(toks), self._up(keep))
-            w = _host(self._warp(logits[:, 0]))
+
+            def trunk_part():
+                nonlocal dwork
+                logits, dwork = self._steps["trunk"](self.dp, dwork, self._up(toks), self._up(keep))
+                w = _host(self._warp(logits[:, 0]))
+                return {s: w[s - self._lo] for s in active if keep[s] and self._mine(s)}
+
+            got = self._gathered("draft", trunk_part)
             for s in active:
                 if keep[s]:
-                    cur[s] = w[s]
-                    trunk_q[s].append(w[s])
+                    cur[s] = got[s]
+                    trunk_q[s].append(got[s])
             self.counters["draft_calls"] += 1
             self.counters["draft_tokens"] += n_live
 
@@ -632,14 +783,21 @@ class BatchedSpeculativeEngine:
                             toks[s * Kp + k, 0] = t
                             branch_tok[s][k].append(t)
                             n_live += 1
-                logits, dfork, _ = forward(self.dp, self.dc, self._up(toks), mode="decode", cache=dfork)
-                w = _host(self._warp(logits[:, 0]))
+
+                def branch_part():
+                    nonlocal dfork
+                    logits, dfork, _ = forward(self.dp, self.dc, self._up(toks, per=Kp), mode="decode", cache=dfork)
+                    w = _host(self._warp(logits[:, 0]))
+                    return {s * Kp + k: w[(s - self._lo) * Kp + k] for s in active
+                            if j < acts[s][2] and self._mine(s) for k in range(acts[s][0])}
+
+                got = self._gathered("draft", branch_part)
                 for s in active:
                     K, _, L2 = acts[s]
                     if j < L2:
                         for k in range(K):
-                            curb[s * Kp + k] = w[s * Kp + k]
-                            branch_q[s][k].append(w[s * Kp + k])
+                            curb[s * Kp + k] = got[s * Kp + k]
+                            branch_q[s][k].append(got[s * Kp + k])
                 self.counters["draft_calls"] += 1
                 self.counters["draft_tokens"] += n_live
 
@@ -710,34 +868,43 @@ class BatchedSpeculativeEngine:
         return offs, _next_pow2(off)
 
     def _target_tree_dispatch_ragged(self, active, trees, roffs):
-        """ONE flat node-major tree pass over every active stream's tree."""
+        """ONE flat node-major tree pass over every active stream's tree;
+        returns its outputs on their way to the host and the packing it ran
+        (``roffs``'s segments; in the mesh form each rank packs its own
+        streams' segments, and skips the pass when it holds none)."""
         offs, Npad = roffs
+        if self._rows is not None:
+            mine = [s for s in active if self._mine(s)]
+            offs, Npad = self._ragged_layout(mine, trees) if mine else ({}, 0)
+        real = sum(trees[s].n_nodes for s in active)
+        self.counters["target_calls"] += 1
+        self.counters["ragged_calls"] += 1
+        self.counters["target_tokens"] += real
+        self.counters["tree_lanes_total"] += roffs[1]
+        self.counters["pad_nodes_total"] += roffs[1] - real
+        if not offs:
+            self._idle("ragged")
+            return None, None, offs
         toks = self._stage("rtree_toks", (Npad,), np.int32)
         owner = self._stage("rtree_owner", (Npad,), np.int32)
         parent = self._stage("rtree_parent", (Npad,), np.int32, fill=-1)
         depth = self._stage("rtree_depth", (Npad,), np.int32)
         local = self._stage("rtree_local", (Npad,), np.int32, fill=-1)
         counts = self._stage("rtree_counts", (self.n_slots,), np.int32)
-        for s in active:
-            o, n = offs[s]
+        for s, (o, n) in offs.items():
             tree = trees[s]
             toks[o:o + n] = tree.tokens
             toks[o] = self.streams[s]["pending"]
             parent[o:o + n] = np.where(tree.parent >= 0, o + tree.parent, -1)
             depth[o:o + n] = tree.depth
             local[o:o + n] = np.arange(n)
-            owner[o:o + n] = s
+            owner[o:o + n] = s - self._lo
             counts[s] = n
+        up = self._staging.upload
         logits, cache, hidden = self._steps["ragged"](
-            self.tp, self.tpool.cache, *(self._up(a) for a in (toks, owner, parent, depth, local, counts)))
+            self.tp, self.tpool.cache, *(up(a) for a in (toks, owner, parent, depth, local)), self._up(counts))
         self.tpool.cache = cache
-        real = sum(trees[s].n_nodes for s in active)
-        self.counters["target_calls"] += 1
-        self.counters["ragged_calls"] += 1
-        self.counters["target_tokens"] += real
-        self.counters["tree_lanes_total"] += Npad
-        self.counters["pad_nodes_total"] += Npad - real
-        return HostCopy(self._warp(logits)), HostCopy(hidden)
+        return HostCopy(self._warp(logits)), HostCopy(hidden), offs
 
     def _commit_tables(self, active, node_paths):
         """Stage the fused commit's tables: accepted node paths, path
@@ -763,44 +930,66 @@ class BatchedSpeculativeEngine:
         """Recurrent targets: the trunk decode, grouped by trunk length, from
         the committed snapshot, then the forked branch replay, grouped by
         branch length.  Returns (snapshot, per-slot float32 distributions).
-        The target pool itself is not written before the commit."""
+        The target pool itself is not written before the commit.  In the
+        mesh form each rank passes its own rows of every group (none: the
+        group's pass is skipped) and ONE exchange gathers the
+        distributions."""
         snapshot = self.tpool.cache
         structs = {s: delayed_structure(trees[s]) for s in active}
-        p_host = {s: np.zeros((trees[s].n_nodes, trees[s].vocab), np.float32) for s in active}
         groups = defaultdict(list)
         for s in active:
             groups[1 + len(structs[s][0])].append(s)
-        trims, trunk_rows = [], []
-        for L, rows in sorted(groups.items()):
-            toks = np.zeros((len(rows), L), np.int64)
-            for i, s in enumerate(rows):
-                toks[i, 0] = self.streams[s]["pending"]
-                toks[i, 1:] = [int(trees[s].tokens[v]) for v in structs[s][0]]
-            sub = gather_streams(snapshot, rows)  # a copy: the snapshot is the commit's checkpoint
-            logits, sub, _ = forward(self.tp, self.tc, self._tokens(toks), mode="decode", cache=sub)
-            trims.append(sub)
-            trunk_rows.extend(rows)
-            w = _host(self._warp(logits))
-            for i, s in enumerate(rows):
-                p_host[s][0] = w[i, 0]
-                for j, v in enumerate(structs[s][0]):
-                    p_host[s][v] = w[i, 1 + j]
-            self.counters["target_calls"] += 1
-            self.counters["target_tokens"] += L * len(rows)
         has_branches = [s for s in active if structs[s][2]]
+        bgroups = defaultdict(list)
         if has_branches and Kp:
-            # every trunk-advanced row written into a dense copy of the pool's
-            # rows (paged rows gathered to their rings), which is forked
-            work = self._scatter_rows(gather_streams(snapshot, range(self.n_slots)), trims, trunk_rows)
-            fork = fork_streams(work, Kp)
-            bgroups = defaultdict(list)
             for s in has_branches:
                 bgroups[len(structs[s][2][0])].append(s)
+        for L, rows in groups.items():
+            self.counters["target_calls"] += 1
+            self.counters["target_tokens"] += L * len(rows)
+        for L2, rows in bgroups.items():
+            self.counters["target_calls"] += 1
+            self.counters["target_tokens"] += L2 * sum(len(structs[s][2]) for s in rows)
+        lo = self._lo
+
+        def part():
+            p_host = {s: np.zeros((trees[s].n_nodes, trees[s].vocab), np.float32)
+                      for s in active if self._mine(s)}
+            trims, trunk_rows = [], []
+            for L, rows in sorted(groups.items()):
+                rows = [s for s in rows if self._mine(s)]
+                if not rows:
+                    self._idle("replay")
+                    continue
+                toks = np.zeros((len(rows), L), np.int64)
+                for i, s in enumerate(rows):
+                    toks[i, 0] = self.streams[s]["pending"]
+                    toks[i, 1:] = [int(trees[s].tokens[v]) for v in structs[s][0]]
+                sub = gather_streams(snapshot, [s - lo for s in rows])  # a copy: the commit's checkpoint
+                logits, sub, _ = forward(self.tp, self.tc, self._tokens(toks), mode="decode", cache=sub)
+                trims.append(sub)
+                trunk_rows.extend(s - lo for s in rows)
+                w = _host(self._warp(logits))
+                for i, s in enumerate(rows):
+                    p_host[s][0] = w[i, 0]
+                    for j, v in enumerate(structs[s][0]):
+                        p_host[s][v] = w[i, 1 + j]
+            if any(self._mine(s) for rows in bgroups.values() for s in rows):
+                # every trunk-advanced row written into a dense copy of the pool's
+                # rows (paged rows gathered to their rings), which is forked
+                work = gather_streams(snapshot, range(self._hi - lo))
+                if trims:
+                    work = self._scatter_rows(work, trims, trunk_rows)
+                fork = fork_streams(work, Kp)
             for L2, rows in sorted(bgroups.items()):
+                rows = [s for s in rows if self._mine(s)]
+                if not rows:
+                    self._idle("replay")
+                    continue
                 frows, meta = [], []
                 for s in rows:
                     for k, path in enumerate(structs[s][2]):
-                        frows.append(s * Kp + k)
+                        frows.append((s - lo) * Kp + k)
                         meta.append((s, path))
                 btoks = np.asarray([[int(trees[s].tokens[v]) for v in path] for s, path in meta], np.int64)
                 sub = gather_streams(fork, frows)
@@ -809,37 +998,49 @@ class BatchedSpeculativeEngine:
                 for i, (s, path) in enumerate(meta):
                     for j, v in enumerate(path):
                         p_host[s][v] = pb[i, j]
-                self.counters["target_calls"] += 1
-                self.counters["target_tokens"] += L2 * len(frows)
-        return snapshot, p_host
+            return p_host
+
+        return snapshot, self._gathered("target", part)
 
     def _commit_replay(self, active, snapshot, accepted_by_slot):
         """Re-advance each stream's row of the snapshot along [root] +
         accepted (grouped by commit length), then write every row back with
-        ONE scatter.  Returns each stream's last hidden state."""
-        hid_last = {}
+        ONE scatter.  Returns each stream's last hidden state (in the mesh
+        form each rank re-advances its own rows and ONE exchange gathers
+        them)."""
         groups = defaultdict(list)
         for s in active:
             groups[1 + len(accepted_by_slot[s])].append(s)
-        trims, all_rows = [], []
-        for L, rows in sorted(groups.items()):
-            toks = np.zeros((len(rows), L), np.int64)
-            for i, s in enumerate(rows):
-                toks[i, 0] = self.streams[s]["pending"]
-                toks[i, 1:] = accepted_by_slot[s]
-            sub = gather_streams(snapshot, rows)
-            _, sub, ex = forward(self.tp, self.tc, self._tokens(toks), mode="decode", cache=sub)
-            trims.append(sub)
-            all_rows.extend(rows)
-            hid = _host(ex["hidden"])
-            for i, s in enumerate(rows):
-                hid_last[s] = hid[i, L - 1]
-        t0 = time.perf_counter()
-        self.tpool.cache = self._scatter_rows(snapshot, trims, all_rows)
-        if self.profile_commits:
-            _wait(self.device)
+        lo = self._lo
+
+        def part():
+            hid_last, trims, all_rows = {}, [], []
+            for L, rows in sorted(groups.items()):
+                rows = [s for s in rows if self._mine(s)]
+                if not rows:
+                    self._idle("replay")
+                    continue
+                toks = np.zeros((len(rows), L), np.int64)
+                for i, s in enumerate(rows):
+                    toks[i, 0] = self.streams[s]["pending"]
+                    toks[i, 1:] = accepted_by_slot[s]
+                sub = gather_streams(snapshot, [s - lo for s in rows])
+                _, sub, ex = forward(self.tp, self.tc, self._tokens(toks), mode="decode", cache=sub)
+                trims.append(sub)
+                all_rows.extend(s - lo for s in rows)
+                hid = _host(ex["hidden"])
+                for i, s in enumerate(rows):
+                    hid_last[s] = hid[i, L - 1]
+            t0 = time.perf_counter()
+            if trims:
+                self.tpool.cache = self._scatter_rows(snapshot, trims, all_rows)
+            if self.profile_commits:
+                _wait(self.device)
+            self.counters["commit_ms"] += (time.perf_counter() - t0) * 1e3
+            return hid_last
+
+        hid_last = self._gathered("commit", part)
         self.counters["commit_calls"] += 1
-        self.counters["commit_ms"] += (time.perf_counter() - t0) * 1e3
         return hid_last
 
     # ---------------------------------------------------------------- step ---
@@ -908,13 +1109,14 @@ class BatchedSpeculativeEngine:
             # auto goes ragged only on a strict lane win
             if self.ragged == "always" or Npad < self.n_slots * Tpad:
                 roffs = (offs, Npad)
+        local_offs = None
         if roffs is not None:
-            p_dev, hid_dev = self._target_tree_dispatch_ragged(active, trees, roffs)
+            p_dev, hid_dev, local_offs = self._target_tree_dispatch_ragged(active, trees, roffs)
         else:
             p_dev, hid_dev = self._target_tree_dispatch(active, trees, Tpad)
         return PendingStep(active=active, acts=acts, pads=pads, trees=trees, hq=hq, C0=C0,
                            p_dev=p_dev, hid_dev=hid_dev, rng_state=rng_state, D0=D0, roffs=roffs,
-                           boundary_evicted=boundary_evicted)
+                           boundary_evicted=boundary_evicted, local_offs=local_offs)
 
     def verify_step(self, pending: PendingStep) -> VerifiedStep:
         """The VERIFY phase: wait for the tree pass's distributions and run
@@ -931,11 +1133,16 @@ class BatchedSpeculativeEngine:
                 accepted[s], c = verify_tree(tree, self.ecfg.verifier, self.streams[s]["rng"])
                 corr[s] = int(c)
             return VerifiedStep(pending, accepted, corr)
-        p_all = pending.p_dev.numpy()
+        if self._rows is not None:
+            pending.segs = self._tree_segments(pending)
+        else:
+            p_all = pending.p_dev.numpy()
         node_paths = {}
         for s in pending.active:
             tree = pending.trees[s]
-            if pending.roffs is not None:
+            if pending.segs is not None:
+                tree.p = to_verifier_dtype(pending.segs[s][0])
+            elif pending.roffs is not None:
                 o, n = pending.roffs[0][s]
                 tree.p = to_verifier_dtype(p_all[o:o + n])
             else:
@@ -944,6 +1151,28 @@ class BatchedSpeculativeEngine:
             accepted[s], corr[s] = acc, int(c)
             node_paths[s] = SpeculativeEngine._accepted_nodes(tree, acc)
         return VerifiedStep(pending, accepted, corr, node_paths=node_paths)
+
+    def _tree_segments(self, pending: PendingStep) -> dict:
+        """The mesh form's readback of a tree pass: ONE exchange of each
+        stream's warped distributions and hidden states over its nodes,
+        {slot: (p (n, V), hidden (n, d))}."""
+        def part():
+            if pending.p_dev is None:  # a ragged pass this rank held no node of
+                return {}
+            p_all, hid_all = pending.p_dev.numpy(), pending.hid_dev.numpy()
+            out = {}
+            for s in pending.active:
+                if not self._mine(s):
+                    continue
+                n = pending.trees[s].n_nodes
+                if pending.local_offs is not None:
+                    o = pending.local_offs[s][0]
+                    out[s] = (p_all[o:o + n], hid_all[o:o + n])
+                else:
+                    out[s] = (p_all[s - self._lo, :n], hid_all[s - self._lo, :n])
+            return out
+
+        return self._gathered("target", part)
 
     def commit_step(self, v: VerifiedStep) -> None:
         """The COMMIT phase: ONE fused commit (tree strategy), or the grouped
@@ -964,13 +1193,15 @@ class BatchedSpeculativeEngine:
                 if s in self.streams:
                     self.streams[s]["h_prev_p"] = v.hid_last[s]
             return
-        hid_all = pending.hid_dev.numpy()
+        hid_all = pending.hid_dev.numpy() if pending.segs is None else None
         for s in pending.active:
             if s not in self.streams:
                 continue
             path = v.node_paths[s]
             idx = path[-1] if path else 0
-            if pending.roffs is not None:
+            if pending.segs is not None:
+                self.streams[s]["h_prev_p"] = pending.segs[s][1][idx]
+            elif pending.roffs is not None:
                 self.streams[s]["h_prev_p"] = hid_all[pending.roffs[0][s][0] + idx]
             else:
                 self.streams[s]["h_prev_p"] = hid_all[s, idx]
@@ -1012,6 +1243,7 @@ class BatchedSpeculativeEngine:
         self.commit_step(v)
         return self.retire_step(v, pipeline_ahead)
 
+    @_mesh_guarded
     def step(self) -> list[dict]:
         """Admit queued requests, advance every active stream one speculative
         block, and return per-request progress events (in pipelined mode,
@@ -1024,6 +1256,7 @@ class BatchedSpeculativeEngine:
             return events
         return events + self.finish_step(pending)
 
+    @_mesh_guarded
     def drain_pipeline(self) -> list[dict]:
         """Finish the begun-ahead step without beginning another."""
         pending, self._pending_next = self._pending_next, None
@@ -1054,6 +1287,7 @@ class BatchedSpeculativeEngine:
         if self.strategy == "tree":
             self.tpool.invalidate_from({s: pending.C0[s] for s in live})
 
+    @_mesh_guarded
     def abort_pipeline(self) -> int:
         """Rewind the begun-ahead step, if any; returns how many (0 or 1)."""
         pending, self._pending_next = self._pending_next, None
@@ -1091,11 +1325,17 @@ class BatchedSpeculativeEngine:
         back dense), decode on it (the pass writes K/V into that copy only),
         discard it.  The pooled form of the single-stream peek oracles; it
         reads the row as the scheduling boundary leaves it (where selectors
-        run: a step begun ahead has already ingested the draft delta)."""
-        sub = gather_streams(pool.cache, [slot])
-        logits, _, _ = forward(params, cfg, torch.as_tensor(np.asarray(toks, np.int64)[None], device=self.device),
-                               mode="decode", cache=sub)
-        return _host(self._warp(logits[0]))[-1]
+        run: a step begun ahead has already ingested the draft delta).  In
+        the mesh form the row's rank peeks and the result is broadcast."""
+        def part():
+            if not self._mine(slot):
+                return {}
+            sub = gather_streams(pool.cache, [slot - self._lo])
+            tok = torch.as_tensor(np.asarray(toks, np.int64)[None], device=self.device)
+            logits, _, _ = forward(params, cfg, tok, mode="decode", cache=sub)
+            return {slot: _host(self._warp(logits[0]))[-1]}
+
+        return self._gathered("peek", part)[slot]
 
     def peek_draft_dist(self, stream, ctx: list[int]) -> np.ndarray:
         """q(. | committed + ctx) for a pooled stream, without mutating it.
@@ -1113,6 +1353,7 @@ class BatchedSpeculativeEngine:
 
     # ----------------------------------------------------------------- run ---
 
+    @_mesh_guarded
     def run(self) -> dict[int, dict]:
         """Step until every submitted request finished; returns
         ``{rid: {"tokens", "reason"}}`` for the requests this call completed

@@ -1,5 +1,5 @@
-"""The rank side of tests/test_torch_distributed.py and
-tests/test_torch_rank_shards.py.
+"""The rank side of tests/test_torch_distributed.py,
+tests/test_torch_rank_shards.py and tests/test_torch_data_mesh.py.
 
 ``spawn`` (or ``Ranks``, which lets the caller work while the ranks run)
 runs a function of this module in ``world`` spawned processes,
@@ -159,11 +159,16 @@ def pins_and_pool(rank: int) -> dict:
     return res
 
 
+class _Calls(list):
+    restore = None
+
+
 def _counted_gathers():
     """Count ``all_gather_object`` calls from here on (the engine's exchanges
-    go through the module attribute)."""
-    calls = [0]
-    gather_object = dist.all_gather_object
+    go through the module attribute); ``restore`` is the function it
+    replaced."""
+    calls = _Calls([0])
+    calls.restore = gather_object = dist.all_gather_object
 
     def counted(*a, **kw):
         calls[0] += 1
@@ -279,3 +284,139 @@ def rank_shards_replay(rank: int, weights: str, arch: str, ecfg_kw: dict, engine
     res.update(gathers=calls[0], exchanges=dict(eng.exchanges), n_slots=eng.n_slots,
                local_slots=eng.local.n_slots)
     return res
+
+
+# ------------------------------------------------- one pool over a data mesh ---
+
+
+def serve_pool_plan(eng, plan, record=None) -> dict:
+    """Serve ``plan`` (as ``serve_plan``) through one pool engine, the
+    port's (any form) or JAX's: each request's tokens and reason; the
+    counters; the pool occupancy after every step and, when given,
+    ``record(eng)`` after every step; the steps taken."""
+    rids, occ, recs, steps = [], [], [], 0
+
+    def step():
+        nonlocal steps
+        eng.step()
+        steps += 1
+        occ.append(eng.pool_occupancy())
+        if record is not None:
+            recs.append(record(eng))
+
+    for kind, arg in plan:
+        if kind == "submit":
+            for prompt, max_new, seed in arg:
+                rids.append(eng.submit(list(prompt), max_new=max_new, seed=seed))
+        else:
+            for _ in range(arg):
+                step()
+    while eng.queue or eng.streams:
+        step()
+    outs = [(eng.finished[r]["tokens"], eng.finished[r]["reason"]) for r in rids]
+    counters = {k: v for k, v in eng.counters.items() if k != "commit_ms"}
+    return {"outs": outs, "counters": counters, "occupancy": occ, "records": recs, "steps": steps}
+
+
+def held_rows(eng) -> dict:
+    """{(pool, slot): {leaf: numpy}} of the port engine's live streams whose
+    rows it holds: each cache leaf of the row, the attention K/V only at its
+    live lanes (pos >= 0: what a mask can admit) and the block table left
+    out (block ids are host state)."""
+    from repro_torch.models.cache import gather_streams
+
+    out = {}
+    for name, pool in (("target", eng.tpool), ("draft", eng.dpool)):
+        for s in eng.streams:
+            if not pool.holds(s):
+                continue
+            row = gather_streams(pool.cache, [s - pool.lo])
+            leaves = {}
+            for key, val in row.items():
+                if key == "attn":
+                    live = val["pos"][0] >= 0
+                    leaves.update({"pos": val["pos"].numpy(), "len": val["len"].numpy(),
+                                   "k": val["k"][:, 0, live].float().numpy(),
+                                   "v": val["v"][:, 0, live].float().numpy()})
+                else:
+                    leaves[key] = val.float().numpy()
+            out[(name, s)] = leaves
+    return out
+
+
+def _mesh_engine(weights: str, arch: str, ecfg_kw: dict, engine_kw: dict, mesh):
+    """A BatchedSpeculativeEngine over ``mesh`` (None: one process) serving
+    the float32 smoke ``arch`` and its draft with JAX's parameters."""
+    import pickle
+
+    from repro_torch import bridge
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch.serve import make_draft_cfg
+    from repro_torch.serving.batch_engine import BatchedSpeculativeEngine
+    from repro_torch.serving.engine import EngineConfig
+
+    with open(weights, "rb") as f:
+        np_tp, np_dp = pickle.load(f)
+    cfg = get_smoke(arch).replace(dtype="float32")
+    tp = bridge.params_from_jax(np_tp, device="cpu", dtype=torch.float32)
+    dp = bridge.params_from_jax(np_dp, device="cpu", dtype=torch.float32)
+    return BatchedSpeculativeEngine(cfg, tp, make_draft_cfg(cfg), dp, EngineConfig(**ecfg_kw), mesh=mesh,
+                                    **engine_kw)
+
+
+def data_mesh_serve(rank: int, cases: dict, failing: tuple) -> dict:
+    """One pool over a 2-rank data mesh (gloo, the CPU).  For each case of
+    ``cases`` ({name: (weights pickle, arch, ecfg_kw, engine_kw, plan)}):
+    ``serve_pool_plan`` through the mesh-form engine with ``held_rows``
+    after every step, every ``all_gather_object`` counted, and the
+    engine's exchanges and idle passes.  Then the refusals, and the
+    ``failing`` case (weights, arch, ecfg_kw, engine_kw, plan) twice with
+    rank 1 failing: once in a pass whose readback is an exchange (the
+    draft ingest), once outside every exchange (the target tree pass's
+    dispatch).  Rank 0 returns every rank's results."""
+    from repro_torch.launch.mesh import make_data_mesh
+
+    mesh = make_data_mesh(2, device_type="cpu")
+    res = {}
+    for name, (weights, arch, ecfg_kw, engine_kw, plan) in cases.items():
+        calls = _counted_gathers()
+        eng = _mesh_engine(weights, arch, ecfg_kw, engine_kw, mesh)
+        r = serve_pool_plan(eng, plan, held_rows)
+        dist.all_gather_object = calls.restore
+        r.update(gathers=calls[0], exchanges=dict(eng.exchanges), idle=dict(eng.idle_passes),
+                 rows=(eng.tpool.lo, eng.tpool.hi), local_len=int(eng.tpool.cache["attn"]["len"].shape[0])
+                 if "attn" in eng.tpool.cache else int(eng.tpool.cache["len"].shape[0]))
+        res[name] = r
+    weights, arch, ecfg_kw, engine_kw, plan = failing
+    refusals = {}
+    for what, kw, m in (("n_slots", dict(engine_kw, n_slots=3), mesh),
+                        ("model axis", engine_kw, _mesh_2d((1, 2), ("data", "model")))):
+        try:
+            _mesh_engine(weights, arch, ecfg_kw, kw, m)
+        except (ValueError, NotImplementedError) as e:
+            refusals[what] = f"{type(e).__name__}: {e}"
+    res["refusals"] = refusals
+    failures = {}
+    for where in ("ingest", "tree"):
+        eng = _mesh_engine(weights, arch, ecfg_kw, engine_kw, mesh)
+        if rank == 1:
+            def broken(*a, **kw):
+                raise RuntimeError(f"the {where} pass failed on purpose")
+            eng._steps[where] = broken
+            if where == "tree":
+                eng._steps["ragged"] = broken
+        try:
+            serve_pool_plan(eng, plan)
+            failures[where] = None
+        except RuntimeError as e:
+            failures[where] = (str(e), dict(eng.exchanges))
+    res["failures"] = failures
+    got = [None, None]
+    dist.all_gather_object(got, res)
+    return got
+
+
+def _mesh_2d(shape, names):
+    from torch.distributed.device_mesh import init_device_mesh
+
+    return init_device_mesh("cpu", shape, mesh_dim_names=names)

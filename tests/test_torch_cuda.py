@@ -276,6 +276,9 @@ def test_paged_and_ragged_attention_at_moe_heads(cuda, dtype, T, H, Hkv):
     (3, 257, 4, 4, 64),      # G = 1
     (3, 300, 12, 2, 64),     # G = 6 (a CTA of 8 heads, 2 idle)
     (2, 640, 64, 2, 128),    # G = 32: two CTAs of 16 heads per KV head
+    (5, 700, 6, 2, 32),      # examples/serve_speculative.py's target heads: D 32, G 3
+    (5, 700, 2, 1, 48),      # its draft's: D 48 (an odd k-step; fp32 lanes 24-31 own no dim)
+    (4, 4096, 10, 1, 256),   # recurrentgemma-2b's heads: D 256, G 10, a 4096-slot cache
 ])
 def test_decode_attention_matches_plain_version(cuda, dtype, window, B, S, H, Hkv, D):
     from repro_torch.kernels.decode_attention import decode_attention
@@ -302,7 +305,8 @@ def test_decode_attention_matches_plain_version(cuda, dtype, window, B, S, H, Hk
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("window", [0, 100])
-@pytest.mark.parametrize("H,Hkv,D,block", [(32, 8, 128, 64), (64, 4, 128, 64), (8, 8, 64, 16), (16, 2, 64, 32)])
+@pytest.mark.parametrize("H,Hkv,D,block", [(32, 8, 128, 64), (64, 4, 128, 64), (8, 8, 64, 16), (16, 2, 64, 32),
+                                            (6, 2, 32, 16), (2, 1, 48, 16), (10, 1, 256, 64)])
 def test_paged_decode_attention_matches_plain_version(cuda, dtype, window, H, Hkv, D, block):
     """Rows of length 0, 1, a partial block, a full row, and a row whose
     tail blocks are unmapped (-1: the trash block)."""
@@ -577,6 +581,9 @@ def test_tree_kernels_many_query_tiles_under_the_window(cuda, dtype, B, T, S, C,
     (64, 4, 128),  # qwen3-moe heads, G 16: a full tile
     (16, 4, 64),   # G 4 at D 64
     (32, 2, 64),   # G 16 at D 64
+    (6, 2, 32),    # D 32, G 3
+    (2, 1, 48),    # D 48, G 2
+    (10, 1, 256),  # D 256, recurrentgemma-2b's G 10
 ])
 def test_decode_attention_mixes_one_split_and_many_split_rows(cuda, dtype, window, H, Hkv, D):
     """S 16384 (512-slot splits): in one batch a row at length 0 (every split,
@@ -630,6 +637,38 @@ def test_paged_decode_attention_repeats_on_many_split_rows(cuda, dtype):
     torch.cuda.synchronize()
     assert torch.equal(out, again) and torch.isfinite(out).all()
     err = _row_rel_err(out, paged_decode_attention_ref(q, k, v, tbl, lengths))
+    assert err <= TOLERANCE[dtype], err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_attention_at_recurrentgemma_window(cuda, dtype):
+    """recurrentgemma-2b's local attention: D 256, H 10 over Hkv 1, its
+    2048-slot window on a 4096-slot cache, dense and paged (64-slot blocks,
+    unmapped tails); rows shorter than, equal to and past the window."""
+    from repro_torch.kernels.decode_attention import decode_attention, paged_decode_attention
+    from repro_torch.kernels.ref import decode_attention_ref, paged_decode_attention_ref
+
+    B, S, H, Hkv, D, window, block = 5, 4096, 10, 1, 256, 2048, 64
+    gen = torch.Generator(device=cuda).manual_seed(256)
+    dt = getattr(torch, dtype)
+    lengths = torch.tensor([0, 700, 2048, 2600, S], dtype=torch.int32, device=cuda)
+    q = torch.randn((B, 1, H, D), generator=gen, device=cuda).to(dt)
+    k, v = (torch.randn((B, S, Hkv, D), generator=gen, device=cuda).to(dt) for _ in range(2))
+    out = decode_attention(q, k, v, lengths, window=window)
+    torch.cuda.synchronize()
+    assert out.dtype == dt and torch.isfinite(out).all()
+    assert _row_rel_err(out, decode_attention_ref(q, k, v, lengths, window)) <= TOLERANCE[dtype]
+    nb = S // block
+    tbl = (torch.randperm(B * nb, generator=gen, device=cuda) + 1).reshape(B, nb).to(torch.int32)
+    tbl[1, 11:] = -1
+    tbl[3, 41:] = -1
+    ka, va = (x.reshape(B * nb, block, Hkv, D) for x in (k, v))
+    ka, va = (torch.cat([torch.zeros_like(x[:1]), x]) for x in (ka, va))  # block 0: trash
+    out = paged_decode_attention(q, ka, va, tbl, lengths, window=window)
+    torch.cuda.synchronize()
+    assert out.dtype == dt and torch.isfinite(out).all()
+    err = _row_rel_err(out, paged_decode_attention_ref(q, ka, va, tbl, lengths, window))
     assert err <= TOLERANCE[dtype], err
 
 

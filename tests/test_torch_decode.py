@@ -4,8 +4,9 @@ flash-decode kernels (Pallas, interpret mode), on the CPU.
 ``kernels.ops.gqa_decode_attention`` and ``gqa_paged_decode_attention``
 (plain versions for CPU tensors) against ``repro.kernels.ops``'s wrappers of
 the same names with ``interpret=True`` (block_k 128 for the dense one), on
-the same numpy inputs: S 128 and 256, H 4 over Hkv 2, D 64 and 128, window 0
-and 16, per-row lengths from 1 to S, paged tables with unmapped (-1) blocks.
+the same numpy inputs: S 128 and 256, H 4 over Hkv 2, D 32, 48, 64, 128 and
+256 (every head_dim the repo's models use), window 0 and 16, per-row lengths
+from 1 to S, paged tables with unmapped (-1) blocks.
 Tolerance: float32 1e-5 (summation order), bfloat16 2e-2 (output rounding).
 A row of length 0 is held against the mean of V over all S slots (the JAX
 dense wrapper averages it over its zero-padded S instead).
@@ -47,7 +48,7 @@ def _f32(x):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("window", [0, 16])
-@pytest.mark.parametrize("S,D", [(128, 64), (256, 128)])
+@pytest.mark.parametrize("S,D", [(128, 64), (256, 128), (128, 32), (128, 48), (256, 256)])
 def test_decode_attention_matches_jax(S, D, window, dtype):
     rng = np.random.default_rng(S + D + window)
     lengths = [1, 7, S // 2 + 3, S - 1, S]
@@ -61,7 +62,7 @@ def test_decode_attention_matches_jax(S, D, window, dtype):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("window", [0, 16])
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 32, 48, 256])
 def test_paged_decode_attention_matches_jax(D, window, dtype):
     """Rows of 1..S logical slots over distinct arena blocks, the unmapped
     tail of each row at -1 (block 0 is trash), one row fully unmapped but
