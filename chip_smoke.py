@@ -149,7 +149,8 @@
    phase 4's seeds) and traffic, bf16, paged, ragged auto, pipelined: both
    ranks return the same tokens and reasons; each rank's exchanges equal
    the design's count (one a draft pass, one a target pass, one a boundary
-   that admits, no other collective); each kernel's launches on each rank
+   that admits, no other collective, and one ``exchange`` span each, whose
+   time is reported as the time in exchanges); each kernel's launches on each rank
    equal the single-process engine's count for the same passes, less the
    passes the rank holds no row of (other ranks' admission prefills, its
    idle ragged passes); matches against phase 4, each rank's peak and
@@ -2748,8 +2749,9 @@ def _pool_mesh_rank(rank, n, init_file, traffic, out):
     full-width granite-8b + draft in bf16 (phase 4's seeds), then on 8e's
     float32 cut; each run serves ``traffic`` ([(prompt, max_new, seed)])
     with every kernel's launch count set to 0 just before and read just
-    after, every ``all_gather_object`` counted and timed (the wait for the
-    other rank included), every boundary that admitted counted."""
+    after, every ``all_gather_object`` counted, the engine's ``exchange``
+    spans read (their time: the wait for the other rank included), every
+    boundary that admitted counted."""
     import gc
     import traceback
     from datetime import timedelta
@@ -2770,15 +2772,11 @@ def _pool_mesh_rank(rank, n, init_file, traffic, out):
             from repro_torch.serving.batch_engine import BatchedSpeculativeEngine
             from repro_torch.serving.engine import EngineConfig, SamplingParams
 
-            gathers, gather_object = [0, 0.0], dist.all_gather_object
+            gathers, gather_object = [0], dist.all_gather_object
 
             def counted(*a, **kw):
-                t = time.perf_counter()
                 gathers[0] += 1
-                try:
-                    return gather_object(*a, **kw)
-                finally:
-                    gathers[1] += time.perf_counter() - t
+                return gather_object(*a, **kw)
 
             dist.all_gather_object = counted
             torch.backends.cuda.matmul.allow_tf32 = False  # as phase 1 sets them in the parent
@@ -2807,7 +2805,7 @@ def _pool_mesh_rank(rank, n, init_file, traffic, out):
 
                 eng._admit = counted_admit
                 torch.cuda.synchronize()
-                g0, s0 = gathers
+                g0, x0 = gathers[0], eng.span_totals.get("exchange", {"calls": 0, "ns": 0})
                 for fn in counters.values():
                     fn.launches = 0
                 t0 = time.perf_counter()
@@ -2818,10 +2816,12 @@ def _pool_mesh_rank(rank, n, init_file, traffic, out):
                     steps += 1
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
+                x1 = eng.span_totals["exchange"]
                 payload[part] = {
                     "outs": [eng.finished[r] for r in rids], "wall_s": wall, "steps": steps,
                     "launches": {k: fn.launches for k, fn in counters.items()}, "exchanges": dict(eng.exchanges),
-                    "idle_passes": dict(eng.idle_passes), "gathers": gathers[0] - g0, "gather_s": gathers[1] - s0,
+                    "idle_passes": dict(eng.idle_passes), "gathers": gathers[0] - g0,
+                    "exchange_spans": x1["calls"] - x0["calls"], "gather_s": (x1["ns"] - x0["ns"]) / 1e9,
                     "admitting": admitting[0],
                     "counters": dict(eng.counters), "rows": [eng.tpool.lo, eng.tpool.hi],
                     "device": str(eng.device), "layers": (tcfg.n_layers, dcfg.n_layers),
@@ -2846,10 +2846,12 @@ def _mesh_checks(r, n_requests, what):
     steps = c["target_calls"]
     want_ex = {"admit": r["admitting"], "draft": c["draft_calls"], "target": c["commit_calls"], "commit": 0,
                "peek": 0, "failure": 0}
-    if ex != want_ex or r["gathers"] != sum(ex.values()) or c["commit_calls"] != steps:
-        raise RuntimeError(f"8g {what}, rank {r['rank']}: exchanges {ex} and all_gather_object calls "
-                           f"{r['gathers']} for {steps} steps ({c['commit_calls']} committed): expected {want_ex} "
-                           f"and no other collective")
+    if (ex != want_ex or r["gathers"] != sum(ex.values()) or r["exchange_spans"] != r["gathers"]
+            or c["commit_calls"] != steps):
+        raise RuntimeError(f"8g {what}, rank {r['rank']}: exchanges {ex}, all_gather_object calls "
+                           f"{r['gathers']} and exchange spans {r['exchange_spans']} for {steps} steps "
+                           f"({c['commit_calls']} committed): expected {want_ex}, a span each and no other "
+                           "collective")
     if c["draft_calls"] != steps * (1 + 2 + 2):
         raise RuntimeError(f"8g {what}: {c['draft_calls']} draft calls for {steps} steps of (2, 2, 2)")
     want = {"tree_attention": (n_requests - idle["prefill"]) * (n_tgt + n_drf) + n_drf * 2 * steps,
@@ -2943,8 +2945,8 @@ def phase_data_mesh(torch, ctx, phase4, f32_tokens):
     log(f"  (a) exchanges a rank {a['exchanges']} (the design's: one a draft pass, one a target pass, one a "
         f"boundary that admits; nothing else); idle passes a rank {a['idle_passes']}")
     log(f"  (a) launches a rank {a['launches']} (expected {a['expected_launches']})")
-    log(f"  (a) wall a rank {', '.join(f'{w:.4f}' for w in a['wall_s'])} s (in all_gather_object, the wait for "
-        f"the other rank included: {', '.join(f'{g:.4f}' for g in a['gather_s'])} s), {a['tokens']} tokens = "
+    log(f"  (a) wall a rank {', '.join(f'{w:.4f}' for w in a['wall_s'])} s (in the engine's exchange spans, the wait "
+        f"for the other rank included: {', '.join(f'{g:.4f}' for g in a['gather_s'])} s), {a['tokens']} tokens = "
         f"{a['tokens_per_s']:.3f} tok/s aggregate (phase 4 pipelined: {phase4['pipelined']['wall_s']:.4f} s, "
         f"{phase4['pipelined']['tokens_per_s']:.3f} tok/s; "
         f"{'two ranks share one card: not a speed across cards' if cards < MESH_RANKS else 'a card a rank'}); "

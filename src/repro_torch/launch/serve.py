@@ -27,7 +27,8 @@ speculative engine, or with ``--streams N`` through the continuous-batching
 engine over an N-row pool (paged, ragged auto-dispatch and pipelined
 stepping by default, as in the JAX launcher), with ``--data-shards N``
 through the sharded engine (N slot shards, each its own arena), and reports
-block efficiency and throughput.  ``--distributed`` serves the sharded
+block efficiency and throughput; the batched engines' report adds the
+host's time by phase (serving/spans.py), in ms a verified step.  ``--distributed`` serves the sharded
 engine with one shard a rank under ``torchrun --nproc_per_node N``: a
 ``gloo`` process group, each rank's device ``cuda:(LOCAL_RANK % cards)``
 (or the CPU under ``--device cpu``), the same weights drawn from
@@ -60,6 +61,7 @@ from repro_torch.launch.mesh import rank_shard
 from repro_torch.models.transformer import init_params
 from repro_torch.serving.batch_engine import BatchedSpeculativeEngine, ShardedBatchedSpeculativeEngine
 from repro_torch.serving.engine import EngineConfig, SamplingParams, SpeculativeEngine
+from repro_torch.serving.spans import per_step_ms, prefill_pad_pct, readback_used_pct
 
 
 def make_draft_cfg(cfg):
@@ -276,7 +278,19 @@ def serve_batched(args, cfg, tp, dcfg, dp, ecfg, sampling, rng, device, group=No
         f"evicted={c['evicted']} pool={pool} stepping={stepping} wall={dt:.1f}s "
         f"tokens/s({device.type})={sum(len(o['tokens']) for o in outs.values()) / dt:.2f}"
     )
+    print(phase_report(eng.span_totals))
     return res
+
+
+def phase_report(totals: dict) -> str:
+    """One line of the host's time by phase, in ms a verified step (a
+    shard's, in the sharded forms), with the prefill's padding and the
+    share of the read-back bytes that were read."""
+    steps = totals.get("verify", {}).get("calls", 0)
+    ms = " ".join(f"{name}={v:.2f}" for name, v in per_step_ms(totals, steps).items())
+    pad, used = prefill_pad_pct(totals) or 0.0, readback_used_pct(totals) or 0.0
+    return (f"host ms/step ({steps} verified steps): {ms} | prefill pad={pad:.1f}% "
+            f"readback used={used:.1f}% of {totals.get('readback', {}).get('bytes', 0) / 1e6:.1f} MB")
 
 
 if __name__ == "__main__":

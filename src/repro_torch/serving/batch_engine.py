@@ -71,7 +71,6 @@ is refused, as in JAX.
 from __future__ import annotations
 
 import functools
-import time
 from collections import defaultdict
 from dataclasses import dataclass
 
@@ -112,25 +111,20 @@ from repro_torch.serving.serve_step import (
     make_pool_tree_step,
     next_pow2 as _next_pow2,
 )
-
-
-def _host(t: torch.Tensor) -> np.ndarray:
-    return t.float().cpu().numpy()
-
-
-def _wait(device: torch.device) -> None:
-    """Block until the device has run everything queued on it."""
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+from repro_torch.serving.spans import Spans, sum_totals
 
 
 class HostCopy:
     """A device tensor on its way to the host: on a CUDA device a
     non-blocking copy into pinned memory, recorded with an event that
-    ``numpy()`` waits on (the JAX engine's ``copy_to_host_async`` future)."""
+    ``numpy()`` waits on (the JAX engine's ``copy_to_host_async`` future).
+    ``nbytes``: the float32 bytes it copies; ``row_bytes``: those of one
+    vector of its last axis; ``pinned``: ``nbytes`` on a card, else 0."""
 
     def __init__(self, t: torch.Tensor):
         t = t.float()
+        self.nbytes, self.row_bytes = t.numel() * 4, t.shape[-1] * 4
+        self.pinned = self.nbytes if t.device.type == "cuda" else 0
         if t.device.type == "cuda":
             self._host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
             self._host.copy_(t, non_blocking=True)
@@ -258,10 +252,10 @@ class BatchedSpeculativeEngine:
     the passes this rank skipped for holding no row of their group
     ("prefill", "ragged", "replay"); every other pass runs on every rank,
     as JAX's SPMD program does.
-    ``profile_commits``: when set, ``commit_ms`` waits
-    for the commit to finish on the device instead of timing the host's
-    dispatch only (blocking every step would serialize the host against the
-    device work the pipeline hides)."""
+
+    ``spans``: the host's spans and counts (serving/spans.py): the totals
+    always, a log between ``spans.start_log()`` and ``spans.stop_log()``;
+    ``span_totals`` reads the totals.  ``counters`` holds no time."""
 
     def __init__(self, target_cfg, target_params, draft_cfg, draft_params,
                  ecfg: EngineConfig, sampling: SamplingParams | None = None,
@@ -345,7 +339,7 @@ class BatchedSpeculativeEngine:
         self._staging = StagingBuffers(self.device, banks=2 if pipeline else 1)
         self._pending_next: PendingStep | None = None
         self._drained_events: list[dict] = []
-        self.profile_commits = False
+        self.spans = Spans()
         self._steps = {
             "ingest": make_pool_decode_step(draft_cfg),
             "trunk": make_pool_locked_step(draft_cfg),
@@ -356,7 +350,7 @@ class BatchedSpeculativeEngine:
         # construction; pad_fraction = pad_nodes_total / tree_lanes_total
         self.counters = {"target_calls": 0, "target_tokens": 0, "draft_calls": 0,
                          "draft_tokens": 0, "accepted": 0, "blocks": 0, "evicted": 0,
-                         "commit_calls": 0, "commit_ms": 0.0,  # see profile_commits
+                         "commit_calls": 0,
                          "blocks_reclaimed": 0, "admit_blocked": 0, "blocks_peak": 0,
                          "pad_nodes_total": 0, "tree_lanes_total": 0,
                          "pipeline_ahead": 0, "pipeline_stalls": 0,
@@ -387,6 +381,26 @@ class BatchedSpeculativeEngine:
         mesh form)."""
         return self.tpool.holds(slot)
 
+    def _host(self, t: torch.Tensor, rows: int | None = None) -> np.ndarray:
+        """``t`` on the host in float32 (on a card a synchronous copy to
+        pageable memory), as one ``readback`` span; ``rows``: how many
+        vectors of its last axis the caller reads (default all)."""
+        t = t.float()
+        n = t.numel() * 4
+        with self.spans.span("readback", bytes=n, used=n if rows is None else rows * t.shape[-1] * 4, pinned=0):
+            return t.cpu().numpy()
+
+    def _wait_copy(self, copy: HostCopy, rows: int) -> np.ndarray:
+        """Wait for a ``HostCopy`` as one ``readback`` span; ``rows`` as in
+        ``_host``."""
+        with self.spans.span("readback", bytes=copy.nbytes, used=rows * copy.row_bytes, pinned=copy.pinned):
+            return copy.numpy()
+
+    @property
+    def span_totals(self) -> dict:
+        """``spans.totals()``: {name: {"calls", "ns", count: sum, ...}}."""
+        return self.spans.totals()
+
     # ------------------------------------------------------ the mesh form ---
 
     def _exchange(self, kind: str, part) -> list:
@@ -404,8 +418,9 @@ class BatchedSpeculativeEngine:
         except Exception as e:  # re-raised below, after every rank has heard of it
             err = e
         got = [None] * self._rows.n
-        dist.all_gather_object(got, (None if err is None else f"{type(err).__name__}: {err}", out),
-                               group=self._rows.group)
+        with self.spans.span("exchange"):
+            dist.all_gather_object(got, (None if err is None else f"{type(err).__name__}: {err}", out),
+                                   group=self._rows.group)
         self.exchanges[kind] += 1
         failed = [(r, g[0]) for r, g in enumerate(got) if g[0] is not None]
         if failed:
@@ -501,20 +516,22 @@ class BatchedSpeculativeEngine:
     def _prefill_row(self, cfg, params, ctx):
         """Prefill a fresh 1-row per-stream cache with ``ctx`` tokens: a
         recurrent model at the exact length, an attention model padded to a
-        power of two (never past the ring)."""
-        row = init_cache(cfg, 1, self.ecfg.max_cache, self.device, per_stream=True)
-        if not ctx:
-            return row, None
+        power of two (never past the ring).  One ``prefill`` span:
+        ``tokens`` the real ones, ``lanes`` the ones passed."""
         T = len(ctx)
-        if cfg.arch_type in RECURRENT:
-            _, row, ex = forward(params, cfg, self._tokens(ctx)[None], mode="full", cache=row)
-            return row, _host(ex["hidden"][0, T - 1])
-        Tp = min(_next_pow2(T), self.ecfg.max_cache)
-        toks = np.zeros((1, Tp), np.int64)
-        toks[0, :T] = ctx
-        _, row, ex = forward(params, cfg, torch.as_tensor(toks, device=self.device), mode="full",
-                             cache=row, lens=torch.tensor([T], dtype=torch.int32, device=self.device))
-        return row, _host(ex["hidden"][0, T - 1])
+        Tp = T if cfg.arch_type in RECURRENT or not T else min(_next_pow2(T), self.ecfg.max_cache)
+        with self.spans.span("prefill", tokens=T, lanes=Tp):
+            row = init_cache(cfg, 1, self.ecfg.max_cache, self.device, per_stream=True)
+            if not ctx:
+                return row, None
+            if cfg.arch_type in RECURRENT:
+                _, row, ex = forward(params, cfg, self._tokens(ctx)[None], mode="full", cache=row)
+                return row, self._host(ex["hidden"][0, T - 1])
+            toks = np.zeros((1, Tp), np.int64)
+            toks[0, :T] = ctx
+            _, row, ex = forward(params, cfg, torch.as_tensor(toks, device=self.device), mode="full",
+                                 cache=row, lens=torch.tensor([T], dtype=torch.int32, device=self.device))
+            return row, self._host(ex["hidden"][0, T - 1])
 
     def _paged_pools(self) -> list[PagedCachePool]:
         return [p for p in (self.tpool, self.dpool) if isinstance(p, PagedCachePool)]
@@ -618,11 +635,14 @@ class BatchedSpeculativeEngine:
         def part():
             logits, self.dpool.cache, hidden = self._steps["ingest"](
                 self.dp, self.dpool.cache, self._up(toks), self._up(lens))
-            w, hid = _host(self._warp(logits)), _host(hidden)
+            mine = [s for s in active if self._mine(s)]
+            # one position of each row is read
+            w, hid = self._host(self._warp(logits), len(mine)), self._host(hidden, len(mine))
             lo = self._lo
-            return {s: (w[s - lo, lens[s] - 1], hid[s - lo, lens[s] - 1]) for s in active if self._mine(s)}
+            return {s: (w[s - lo, lens[s] - 1], hid[s - lo, lens[s] - 1]) for s in mine}
 
-        got = self._gathered("draft", part)
+        with self.spans.span("draft.ingest"):
+            got = self._gathered("draft", part)
         q0 = {s: got[s][0] for s in active}
         hq = {s: got[s][1] for s in active}
         self.counters["draft_calls"] += 1
@@ -649,8 +669,8 @@ class BatchedSpeculativeEngine:
                 logits, sub, ex = forward(self.dp, self.dc, self._tokens(toks), mode="decode", cache=sub)
                 trims.append(sub)
                 all_rows.extend(s - self._lo for s in rows)
-                w = _host(self._warp(logits))
-                hid = _host(ex["hidden"])
+                w = self._host(self._warp(logits), len(rows))
+                hid = self._host(ex["hidden"], len(rows))
                 for i, s in enumerate(rows):
                     out[s] = (w[i, L - 1], hid[i, L - 1])
             if trims:
@@ -658,7 +678,8 @@ class BatchedSpeculativeEngine:
                 self.dpool.cache = self._scatter_rows(self.dpool.cache, trims, all_rows)
             return out
 
-        got = self._gathered("draft", part)
+        with self.spans.span("draft.ingest"):
+            got = self._gathered("draft", part)
         return {s: got[s][0] for s in active}, {s: got[s][1] for s in active}
 
     @staticmethod
@@ -753,10 +774,12 @@ class BatchedSpeculativeEngine:
             def trunk_part():
                 nonlocal dwork
                 logits, dwork = self._steps["trunk"](self.dp, dwork, self._up(toks), self._up(keep))
-                w = _host(self._warp(logits[:, 0]))
-                return {s: w[s - self._lo] for s in active if keep[s] and self._mine(s)}
+                live = [s for s in active if keep[s] and self._mine(s)]
+                w = self._host(self._warp(logits[:, 0]), len(live))
+                return {s: w[s - self._lo] for s in live}
 
-            got = self._gathered("draft", trunk_part)
+            with self.spans.span("draft.trunk"):
+                got = self._gathered("draft", trunk_part)
             for s in active:
                 if keep[s]:
                     cur[s] = got[s]
@@ -787,11 +810,12 @@ class BatchedSpeculativeEngine:
                 def branch_part():
                     nonlocal dfork
                     logits, dfork, _ = forward(self.dp, self.dc, self._up(toks, per=Kp), mode="decode", cache=dfork)
-                    w = _host(self._warp(logits[:, 0]))
-                    return {s * Kp + k: w[(s - self._lo) * Kp + k] for s in active
-                            if j < acts[s][2] and self._mine(s) for k in range(acts[s][0])}
+                    live = [(s, k) for s in active if j < acts[s][2] and self._mine(s) for k in range(acts[s][0])]
+                    w = self._host(self._warp(logits[:, 0]), len(live))
+                    return {s * Kp + k: w[(s - self._lo) * Kp + k] for s, k in live}
 
-                got = self._gathered("draft", branch_part)
+                with self.spans.span("draft.branch"):
+                    got = self._gathered("draft", branch_part)
                 for s in active:
                     K, _, L2 = acts[s]
                     if j < L2:
@@ -969,7 +993,7 @@ class BatchedSpeculativeEngine:
                 logits, sub, _ = forward(self.tp, self.tc, self._tokens(toks), mode="decode", cache=sub)
                 trims.append(sub)
                 trunk_rows.extend(s - lo for s in rows)
-                w = _host(self._warp(logits))
+                w = self._host(self._warp(logits))
                 for i, s in enumerate(rows):
                     p_host[s][0] = w[i, 0]
                     for j, v in enumerate(structs[s][0]):
@@ -994,7 +1018,7 @@ class BatchedSpeculativeEngine:
                 btoks = np.asarray([[int(trees[s].tokens[v]) for v in path] for s, path in meta], np.int64)
                 sub = gather_streams(fork, frows)
                 logits, _, _ = forward(self.tp, self.tc, self._tokens(btoks), mode="decode", cache=sub)
-                pb = _host(self._warp(logits))
+                pb = self._host(self._warp(logits))
                 for i, (s, path) in enumerate(meta):
                     for j, v in enumerate(path):
                         p_host[s][v] = pb[i, j]
@@ -1028,15 +1052,11 @@ class BatchedSpeculativeEngine:
                 _, sub, ex = forward(self.tp, self.tc, self._tokens(toks), mode="decode", cache=sub)
                 trims.append(sub)
                 all_rows.extend(s - lo for s in rows)
-                hid = _host(ex["hidden"])
+                hid = self._host(ex["hidden"], len(rows))
                 for i, s in enumerate(rows):
                     hid_last[s] = hid[i, L - 1]
-            t0 = time.perf_counter()
             if trims:
                 self.tpool.cache = self._scatter_rows(snapshot, trims, all_rows)
-            if self.profile_commits:
-                _wait(self.device)
-            self.counters["commit_ms"] += (time.perf_counter() - t0) * 1e3
             return hid_last
 
         hid_last = self._gathered("commit", part)
@@ -1051,7 +1071,8 @@ class BatchedSpeculativeEngine:
         delayed-tree drafting and the target tree pass.  Returns None when
         nothing is active."""
         self._staging.flip()
-        self._admit()
+        with self.spans.span("admit"):
+            self._admit()
         active = [s for s in sorted(self.streams) if not self.streams[s]["done"]]
         if not active:
             return None
@@ -1096,60 +1117,70 @@ class BatchedSpeculativeEngine:
                 # persisted draft mutation is the append-only delta ingest
                 D0 = {s: len(self.streams[s]["committed"]) - len(self.streams[s]["draft_delta"])
                       for s in active}
-        q0, hq = self._ingest_deltas(active)
-        trees = self._draft_trees(active, acts, q0, pads)
+        with self.spans.span("draft"):
+            q0, hq = self._ingest_deltas(active)
+            trees = self._draft_trees(active, acts, q0, pads)
         if self.strategy == "replay":
-            snapshot, p_host = self._target_replay(active, trees, pads[0])
+            with self.spans.span("target"):
+                snapshot, p_host = self._target_replay(active, trees, pads[0])
             return PendingStep(active=active, acts=acts, pads=pads, trees=trees, hq=hq, C0=C0,
                                snapshot=snapshot, p_host=p_host, rng_state=rng_state, D0=D0,
                                boundary_evicted=boundary_evicted)
-        roffs = None
-        if self._ragged_ok:
-            offs, Npad = self._ragged_layout(active, trees)
-            # auto goes ragged only on a strict lane win
-            if self.ragged == "always" or Npad < self.n_slots * Tpad:
-                roffs = (offs, Npad)
-        local_offs = None
-        if roffs is not None:
-            p_dev, hid_dev, local_offs = self._target_tree_dispatch_ragged(active, trees, roffs)
-        else:
-            p_dev, hid_dev = self._target_tree_dispatch(active, trees, Tpad)
+        with self.spans.span("target"):
+            roffs = None
+            if self._ragged_ok:
+                offs, Npad = self._ragged_layout(active, trees)
+                # auto goes ragged only on a strict lane win
+                if self.ragged == "always" or Npad < self.n_slots * Tpad:
+                    roffs = (offs, Npad)
+            local_offs = None
+            if roffs is not None:
+                p_dev, hid_dev, local_offs = self._target_tree_dispatch_ragged(active, trees, roffs)
+            else:
+                p_dev, hid_dev = self._target_tree_dispatch(active, trees, Tpad)
         return PendingStep(active=active, acts=acts, pads=pads, trees=trees, hq=hq, C0=C0,
                            p_dev=p_dev, hid_dev=hid_dev, rng_state=rng_state, D0=D0, roffs=roffs,
                            boundary_evicted=boundary_evicted, local_offs=local_offs)
 
     def verify_step(self, pending: PendingStep) -> VerifiedStep:
         """The VERIFY phase: wait for the tree pass's distributions and run
-        every stream's host-side accept/reject walk.  Consumes per-stream rng;
-        touches no pool or scheduling state (beyond dropping the draft pool's
-        back frame: the step is being finished)."""
+        every stream's host-side accept/reject walk (a ``verify.row`` span
+        each).  Consumes per-stream rng; touches no pool or scheduling state
+        (beyond dropping the draft pool's back frame: the step is being
+        finished)."""
+        with self.spans.span("verify"):
+            return self._verify(pending)
+
+    def _verify(self, pending: PendingStep) -> VerifiedStep:
         if self.dpool.frame_held:
             self.dpool.drop_frame()
         accepted, corr = {}, {}
         if self.strategy == "replay":
             for s in pending.active:
-                tree = pending.trees[s]
-                tree.p = to_verifier_dtype(pending.p_host[s])
-                accepted[s], c = verify_tree(tree, self.ecfg.verifier, self.streams[s]["rng"])
-                corr[s] = int(c)
+                with self.spans.span("verify.row"):
+                    tree = pending.trees[s]
+                    tree.p = to_verifier_dtype(pending.p_host[s])
+                    accepted[s], c = verify_tree(tree, self.ecfg.verifier, self.streams[s]["rng"])
+                    corr[s] = int(c)
             return VerifiedStep(pending, accepted, corr)
         if self._rows is not None:
             pending.segs = self._tree_segments(pending)
         else:
-            p_all = pending.p_dev.numpy()
+            p_all = self._wait_copy(pending.p_dev, sum(pending.trees[s].n_nodes for s in pending.active))
         node_paths = {}
         for s in pending.active:
-            tree = pending.trees[s]
-            if pending.segs is not None:
-                tree.p = to_verifier_dtype(pending.segs[s][0])
-            elif pending.roffs is not None:
-                o, n = pending.roffs[0][s]
-                tree.p = to_verifier_dtype(p_all[o:o + n])
-            else:
-                tree.p = to_verifier_dtype(p_all[s, : tree.n_nodes])
-            acc, c = verify_tree(tree, self.ecfg.verifier, self.streams[s]["rng"])
-            accepted[s], corr[s] = acc, int(c)
-            node_paths[s] = SpeculativeEngine._accepted_nodes(tree, acc)
+            with self.spans.span("verify.row"):
+                tree = pending.trees[s]
+                if pending.segs is not None:
+                    tree.p = to_verifier_dtype(pending.segs[s][0])
+                elif pending.roffs is not None:
+                    o, n = pending.roffs[0][s]
+                    tree.p = to_verifier_dtype(p_all[o:o + n])
+                else:
+                    tree.p = to_verifier_dtype(p_all[s, : tree.n_nodes])
+                acc, c = verify_tree(tree, self.ecfg.verifier, self.streams[s]["rng"])
+                accepted[s], corr[s] = acc, int(c)
+                node_paths[s] = SpeculativeEngine._accepted_nodes(tree, acc)
         return VerifiedStep(pending, accepted, corr, node_paths=node_paths)
 
     def _tree_segments(self, pending: PendingStep) -> dict:
@@ -1159,7 +1190,8 @@ class BatchedSpeculativeEngine:
         def part():
             if pending.p_dev is None:  # a ragged pass this rank held no node of
                 return {}
-            p_all, hid_all = pending.p_dev.numpy(), pending.hid_dev.numpy()
+            n_read = sum(pending.trees[s].n_nodes for s in pending.active if self._mine(s))
+            p_all, hid_all = self._wait_copy(pending.p_dev, n_read), self._wait_copy(pending.hid_dev, n_read)
             out = {}
             for s in pending.active:
                 if not self._mine(s):
@@ -1179,10 +1211,11 @@ class BatchedSpeculativeEngine:
         replay re-advance and its one write-back (replay strategy, which
         also yields the last hidden states).  Runs before ``retire_step``
         extends ``committed`` (the commit indices are pre-block)."""
-        if self.strategy == "tree":
-            _commit_trees([self], [v], self.counters)
-        else:
-            v.hid_last = self._commit_replay(v.pending.active, v.pending.snapshot, v.accepted)
+        with self.spans.span("commit"):
+            if self.strategy == "tree":
+                _commit_trees([self], [v], self.counters)
+            else:
+                v.hid_last = self._commit_replay(v.pending.active, v.pending.snapshot, v.accepted)
 
     def _read_hidden(self, v: VerifiedStep) -> None:
         """Publish each stream's last accepted hidden state; departed rows
@@ -1193,7 +1226,8 @@ class BatchedSpeculativeEngine:
                 if s in self.streams:
                     self.streams[s]["h_prev_p"] = v.hid_last[s]
             return
-        hid_all = pending.hid_dev.numpy() if pending.segs is None else None
+        read = [s for s in pending.active if s in self.streams]
+        hid_all = self._wait_copy(pending.hid_dev, len(read)) if pending.segs is None else None
         for s in pending.active:
             if s not in self.streams:
                 continue
@@ -1212,18 +1246,21 @@ class BatchedSpeculativeEngine:
         hidden-state readback, deferred past that dispatch when no selector
         reads it at the boundary."""
         pending = v.pending
-        retire = [(s, self._advance_stream(s, pending.trees[s], v.accepted[s], v.corr[s], pending.hq[s],
-                                           None if v.node_paths is None else v.node_paths[s]))
-                  for s in pending.active]
         if pipeline_ahead is None:
             pipeline_ahead = self.pipeline
         # the replay strategy's hid_last is already on the host
         defer_hid = pipeline_ahead and self.strategy == "tree" and self.selector is None
-        if not defer_hid:
-            self._read_hidden(v)
-        for s, ev in retire:
-            if ev["done"]:
-                self._finish(s)
+        # the begun-ahead step's phases are its own: ``retire`` closes before
+        # them and reopens for the deferred read
+        with self.spans.span("retire"):
+            retire = [(s, self._advance_stream(s, pending.trees[s], v.accepted[s], v.corr[s], pending.hq[s],
+                                               None if v.node_paths is None else v.node_paths[s]))
+                      for s in pending.active]
+            if not defer_hid:
+                self._read_hidden(v)
+            for s, ev in retire:
+                if ev["done"]:
+                    self._finish(s)
         if pipeline_ahead:
             if self._pending_next is not None:
                 raise RuntimeError("a begun-ahead step is already pending")
@@ -1234,7 +1271,8 @@ class BatchedSpeculativeEngine:
             else:
                 self.counters["pipeline_stalls"] += 1
         if defer_hid:
-            self._read_hidden(v)
+            with self.spans.span("retire"):
+                self._read_hidden(v)
         return [ev for _, ev in retire]
 
     def finish_step(self, pending: PendingStep, pipeline_ahead: bool | None = None) -> list[dict]:
@@ -1333,7 +1371,7 @@ class BatchedSpeculativeEngine:
             sub = gather_streams(pool.cache, [slot - self._lo])
             tok = torch.as_tensor(np.asarray(toks, np.int64)[None], device=self.device)
             logits, _, _ = forward(params, cfg, tok, mode="decode", cache=sub)
-            return {slot: _host(self._warp(logits[0]))[-1]}
+            return {slot: self._host(self._warp(logits[0]), 1)[-1]}
 
         return self._gathered("peek", part)[slot]
 
@@ -1387,19 +1425,14 @@ def _commit_trees(engines, verified, counters) -> None:
     """ONE commit call over the accepted paths of each engine's verified
     step (serve_step.make_group_commit_step: one ``commit_kv`` launch an
     engine's pool), counted in ``counters``: an engine's own commit, or a
-    sharded engine's grouped commit of its shards.  ``commit_ms`` is the
-    host's dispatch, or the device's finish under ``profile_commits``."""
+    sharded engine's grouped commit of its shards."""
     tables = [eng._commit_tables(v.pending.active, v.node_paths)[:4] for eng, v in zip(engines, verified)]
-    t0 = time.perf_counter()
     args = [tuple(eng._up(a) for a in tab) for eng, tab in zip(engines, tables)]
     caches = make_group_commit_step([v.pending.pads[3] for v in verified])(
         tuple(eng.tpool.cache for eng in engines), *zip(*args))
     for eng, cache in zip(engines, caches):
         eng.tpool.cache = cache
-    if engines[0].profile_commits:
-        _wait(engines[0].device)
     counters["commit_calls"] += 1
-    counters["commit_ms"] += (time.perf_counter() - t0) * 1e3
 
 
 def _take_finished(eng: BatchedSpeculativeEngine) -> dict[int, dict]:
@@ -1563,10 +1596,11 @@ class ShardedBatchedSpeculativeEngine:
         # bin-packing state: global rid -> (shard, expected Tpad) of every live
         # routed request, pruned against _local at submit()
         self._resident: dict[int, tuple[int, int]] = {}
-        # engine-level commit counters: a grouped commit belongs to no single
-        # shard (the counters property adds them to the shards' sums); a
-        # shard a rank never groups, so they stay 0 there
-        self._counters = {"commit_calls": 0, "commit_ms": 0.0}
+        # engine-level commit counter and spans: a grouped commit belongs to
+        # no single shard (``counters`` and ``span_totals`` add them to the
+        # shards' sums); a shard a rank never groups, so they stay empty there
+        self._counters = {"commit_calls": 0}
+        self._spans = Spans()
 
     # --------------------------------------------------------- scheduling ---
 
@@ -1774,7 +1808,8 @@ class ShardedBatchedSpeculativeEngine:
             for si in group:
                 self.shards[si].commit_step(verified[si])
             return
-        _commit_trees([self.shards[si] for si in group], [verified[si] for si in group], self._counters)
+        with self._spans.span("commit"):
+            _commit_trees([self.shards[si] for si in group], [verified[si] for si in group], self._counters)
 
     def drain_pipeline(self) -> list[dict]:
         """Finish every shard's begun-ahead step without beginning another."""
@@ -1875,13 +1910,11 @@ class ShardedBatchedSpeculativeEngine:
                 self._counters[key] = type(self._counters[key])()
 
     @property
-    def profile_commits(self) -> bool:
-        return self.local.profile_commits
-
-    @profile_commits.setter
-    def profile_commits(self, value: bool) -> None:
-        for sh in ([self.local] if self.group is not None else self.shards):
-            sh.profile_commits = value
+    def span_totals(self) -> dict:
+        """The shards' span totals (serving/spans.py) summed, plus this
+        engine's grouped commits, as ``counters`` sums the counters; with a
+        group, this rank's shard's only (times are not exchanged)."""
+        return sum_totals([sh.spans.totals() for sh in self._real()] + [self._spans.totals()])
 
     @property
     def queue(self) -> list:

@@ -369,7 +369,7 @@ def data_mesh_serve(rank: int, cases: dict, failing: tuple) -> dict:
     ``cases`` ({name: (weights pickle, arch, ecfg_kw, engine_kw, plan)}):
     ``serve_pool_plan`` through the mesh-form engine with ``held_rows``
     after every step, every ``all_gather_object`` counted, and the
-    engine's exchanges and idle passes.  Then the refusals, and the
+    engine's exchanges, idle passes and span totals.  Then the refusals, and the
     ``failing`` case (weights, arch, ecfg_kw, engine_kw, plan) twice with
     rank 1 failing: once in a pass whose readback is an exchange (the
     draft ingest), once outside every exchange (the target tree pass's
@@ -383,7 +383,7 @@ def data_mesh_serve(rank: int, cases: dict, failing: tuple) -> dict:
         eng = _mesh_engine(weights, arch, ecfg_kw, engine_kw, mesh)
         r = serve_pool_plan(eng, plan, held_rows)
         dist.all_gather_object = calls.restore
-        r.update(gathers=calls[0], exchanges=dict(eng.exchanges), idle=dict(eng.idle_passes),
+        r.update(gathers=calls[0], exchanges=dict(eng.exchanges), idle=dict(eng.idle_passes), spans=eng.span_totals,
                  rows=(eng.tpool.lo, eng.tpool.hi), local_len=int(eng.tpool.cache["attn"]["len"].shape[0])
                  if "attn" in eng.tpool.cache else int(eng.tpool.cache["len"].shape[0]))
         res[name] = r

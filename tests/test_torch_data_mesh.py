@@ -167,23 +167,25 @@ def test_mesh_form_exchanges_as_designed(runs):
     boundary that admitted, nothing else; replay: one draft exchange for
     the grouped ingest and each draft level, one for the target's groups
     and one for the commit, a step.  Every collective is an exchange the
-    engine counted, and a rank skips a ragged pass, a prefill or a replay
-    group only where it holds no row of it."""
+    engine counted, and timed in an ``exchange`` span; a rank skips a
+    ragged pass, a prefill or a replay group only where it holds no row of
+    it, and records only the prefills it ran."""
     _, _, got = runs
     for rank in (0, 1):
         r = got[rank]["tree"]
         ex, c = r["exchanges"], r["counters"]
-        assert r["gathers"] == sum(ex.values())
+        assert r["gathers"] == sum(ex.values()) == r["spans"]["exchange"]["calls"]
         # a tree pass that a submit rewound (abort_step) is never read back
         assert ex["draft"] == c["draft_calls"] and ex["target"] == c["commit_calls"] < c["target_calls"]
         assert 0 < ex["admit"] <= len(r["outs"]) and ex["peek"] == ex["failure"] == ex["commit"] == 0
         idle = r["idle"]
         assert idle["replay"] == 0 and idle["ragged"] < c["ragged_calls"]
     assert sum(got[r]["tree"]["idle"]["prefill"] for r in (0, 1)) == len(got[0]["tree"]["outs"])
+    assert sum(got[r]["tree"]["spans"]["prefill"]["calls"] for r in (0, 1)) == 2 * len(got[0]["tree"]["outs"])
     for rank in (0, 1):
         r = got[rank]["replay"]
         ex, c, steps = r["exchanges"], r["counters"], r["counters"]["commit_calls"]
-        assert r["gathers"] == sum(ex.values())
+        assert r["gathers"] == sum(ex.values()) == r["spans"]["exchange"]["calls"]
         assert ex["target"] == ex["commit"] == steps
         assert ex["draft"] == steps * (1 + REPLAY_ECFG["L1"] + REPLAY_ECFG["L2"])
         assert ex["draft"] < c["draft_calls"]  # a recurrent draft's ingest: one exchange for its groups

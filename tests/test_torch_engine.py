@@ -184,6 +184,7 @@ def test_cli_streams_serves_end_to_end(capsys):
     out = capsys.readouterr().out
     assert all(f"req{r}: [" in out for r in range(3))
     assert "[batched x2]" in out and "paged(block=64" in out and "pipelined(" in out
+    assert "host ms/step (" in out and " verify=" in out and "readback used=" in out
     # --data-shards is ported (tests/test_torch_sharding.py): it serves
     tserve.main(["--arch", "granite-8b", "--smoke", "--device", "cpu", "--streams", "2", "--data-shards", "2",
                  "--requests", "2", "--max-new", "4"])

@@ -203,12 +203,14 @@ def commit_tally(monkeypatch):
 
 def test_single_engine_commit_counters(models, commit_tally):
     eng = _unsharded(models, pipeline=False)
-    eng.profile_commits = True
-    t0 = time.perf_counter()
+    t0 = time.time_ns()
     eng.generate_batch(PROMPTS, max_new=10, seeds=SEEDS)
-    wall_ms = (time.perf_counter() - t0) * 1e3
+    wall_ns = time.time_ns() - t0
     assert eng.counters["commit_calls"] == commit_tally["commits"] == commit_tally["kernel"] > 0
-    assert 0 < eng.counters["commit_ms"] <= wall_ms
+    # one ``commit`` span a commit call, its time a part of the run's
+    commit = eng.span_totals["commit"]
+    assert commit["calls"] == eng.counters["commit_calls"]
+    assert 0 < commit["ns"] <= wall_ns
 
 
 def test_sharded_commit_counters_and_grouping(models, commit_tally):
@@ -217,22 +219,22 @@ def test_sharded_commit_counters_and_grouping(models, commit_tally):
     single_commits = single.counters["commit_calls"]
     commit_tally.update(commits=0, kernel=0)
     eng = _sharded(models, pipeline=False)
-    eng.profile_commits = True
-    assert eng.profile_commits and all(sh.profile_commits for sh in eng.shards)
     assert eng.generate_batch(PROMPTS, max_new=10, seeds=SEEDS) == want
     c = eng.counters
     # the summed counter equals the commit calls that happened...
     assert c["commit_calls"] == commit_tally["commits"] > 0
-    # ...the grouped path fired (engine-level, no shard owns it), launching
-    # the commit kernel once a shard...
+    # ...the grouped path fired (engine-level, no shard owns it, and so does
+    # its ``commit`` span), launching the commit kernel once a shard...
     grouped = eng.grouped_commits
-    assert grouped > 0 and c["commit_ms"] > 0
+    commit = eng.span_totals["commit"]
+    assert grouped > 0 and commit["calls"] == c["commit_calls"] and commit["ns"] > 0
+    assert eng._spans.totals()["commit"]["calls"] == grouped
     per_shard = sum(sh.counters["commit_calls"] for sh in eng.shards)
     assert commit_tally["kernel"] == per_shard + eng.data_shards * grouped
     # ...and regrouping keeps the commit calls within one straggler a shard
     assert c["commit_calls"] <= single_commits + eng.data_shards
-    eng.reset_counters(("commit_calls", "commit_ms"))
-    assert eng.counters["commit_calls"] == 0 and eng.counters["commit_ms"] == 0.0
+    eng.reset_counters(("commit_calls",))
+    assert eng.counters["commit_calls"] == 0
 
 
 # ---------------------------------------------------------- race harness ---
